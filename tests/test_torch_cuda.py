@@ -1,0 +1,198 @@
+"""The port's CUDA kernels, model and engine on the card, held against
+their plain PyTorch versions (the CPU path) on the same inputs. Beyond
+the serving shapes ``chip_smoke.py`` checks, these sweep every head dim
+the kernels take, group sizes 1 to 16, ragged lengths, sliding windows,
+holes in the decode mask, and unaligned and contiguous layouts.
+
+They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: a kernel against its plain version, bf16 2e-2 and f32 1e-4
+(sums in another order); the f32 model on the card against the CPU,
+1e-4. f32 matmuls run without TF32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.registry import get_api, get_config
+from repro_torch.serve.engine import Request, ServeEngine
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _err(got, want) -> float:
+    torch.cuda.synchronize()
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,S,hd,win,causal", [
+    (1, 4, 4, 1, 16, None, True),       # a one-token prompt bucket
+    (2, 9, 3, 7, 64, None, True),       # smollm heads, ragged tail
+    (2, 9, 3, 100, 64, 5, True),        # sliding window
+    (1, 8, 2, 256, 32, 128, True),      # window across whole tiles
+    (1, 2, 1, 130, 128, None, True),    # hd 128: over 48 KB of smem
+    (2, 16, 1, 65, 64, None, True),     # one KV head for 16 heads
+    (1, 6, 2, 70, 64, None, False),     # not causal
+])
+def test_flash_attention_matches_plain(B, H, Kh, S, hd, win, causal, dtype):
+    gen = torch.Generator("cuda").manual_seed(S)
+    # the model's layout: (B, S, heads, hd) projections as transposed views
+    q = _randn(gen, (B, S, H, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    n = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    assert FA.flash_attention.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = FA.attention_ref(q, k, v, causal=causal, sliding_window=win)
+    assert _err(got, want) <= TOL[dtype]
+    # contiguous (B, H, S, hd) inputs: other strides, the same arithmetic
+    again = FA.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal,
+                               sliding_window=win)
+    assert _err(again, got) == 0
+
+
+def _cache_view(gen, B, W, Kh, hd, dtype, aligned):
+    """k or v in the model's cache layout (B, W, Kh, hd), returned as the
+    kernel's (B, Kh, W, hd) permuted view. Unaligned: one element into a
+    wider buffer, so no row starts on 16 bytes (the scalar-load path)."""
+    if aligned:
+        buf = _randn(gen, (B, W, Kh, hd), dtype)
+    else:
+        buf = _randn(gen, (B, W, Kh, hd + 1), dtype)[..., 1:]
+    return buf.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,W,hd,aligned", [
+    (1, 4, 4, 1, 16, True),             # a one-slot cache
+    (3, 9, 3, 100, 64, True),           # the CLI's ragged window
+    (2, 8, 2, 63, 32, True),            # one split, not full
+    (2, 16, 1, 130, 128, True),         # g = 16, hd 128
+    (8, 9, 3, 1024, 64, True),          # the served shape
+    (2, 9, 3, 100, 64, False),
+    (2, 4, 2, 65, 16, False),
+])
+def test_flash_decode_matches_plain(B, H, Kh, W, hd, aligned, dtype):
+    gen = torch.Generator("cuda").manual_seed(W)
+    q = _randn(gen, (B, H, hd), dtype)
+    k = _cache_view(gen, B, W, Kh, hd, dtype, aligned)
+    v = _cache_view(gen, B, W, Kh, hd, dtype, aligned)
+    # holes anywhere (a ring buffer's validity), and one row with no
+    # valid slot at all: the mean of v, never NaN
+    valid = torch.randint(0, 2, (B, W), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    valid[0] = 0
+    n = FD.flash_decode.launches
+    got = FD.flash_decode(q, k, v, valid)
+    assert FD.flash_decode.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, FD.decode_ref(q, k, v, valid)) <= TOL[dtype]
+
+
+def test_kernels_reject_what_they_cannot_take():
+    q = torch.zeros((1, 4, 8, 48), device="cuda")        # hd 48
+    kv = torch.zeros((1, 2, 8, 48), device="cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        FA.flash_attention(q, kv, kv)
+    q = torch.zeros((1, 4, 64), device="cuda")
+    kv = torch.zeros((1, 2, 8, 64), device="cuda")
+    with pytest.raises(TypeError, match="dtypes"):
+        FD.flash_decode(q, kv, kv, torch.ones((1, 8), dtype=torch.int64,
+                                              device="cuda"))
+    with pytest.raises(ValueError, match="tensors on"):
+        FD.flash_decode(q, kv.cpu(), kv, torch.ones((1, 8), dtype=torch.int32,
+                                                    device="cuda"))
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"n_heads": 6, "n_kv_heads": 2}, {"sliding_window": 5}],
+    ids=["dense", "g3", "swa"])
+def test_model_on_card_matches_cpu(overrides):
+    """Prefill logits and caches, then decode steps past the window (a
+    full cache drops the write, a ring buffer wraps), in f32."""
+    cfg = get_config("smollm-135m").reduced(**overrides)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 13)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, caches = api.prefill_full_fn(p, {"tokens": tokens.to(dev)})
+        state = api.init_decode_state(2, 7, dev)
+        got = [logits, caches["layers"]["k"], caches["layers"]["v"]]
+        for s in range(9):
+            t = torch.tensor([s, s + 2], dtype=torch.int32, device=dev)
+            lg, state = api.decode_fn(p, state, {"token": tokens[:2, s]
+                                                 .to(dev), "t": t})
+            got.append(lg)
+        outs[dev] = got + list(state["layers"].values())
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert b.is_cuda and torch.isfinite(b.float()).all()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+def test_engine_on_card_serves_what_the_cpu_serves():
+    """Bulk buckets, a prompt past the window (the sequential path) and
+    slot reuse: the same tokens and epochs on both devices, and only the
+    card's run launches the kernels."""
+    cfg = get_config("smollm-135m").reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 1, 12, 40, 3, 17, 8)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(api, _to(params, dev), batch=4, window=32)
+        reqs = [Request(i, p, max_new=5) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = (FA.flash_attention.launches, FD.flash_decode.launches)
+        eng.run_until_drained()
+        launched = (FA.flash_attention.launches - before[0],
+                    FD.flash_decode.launches - before[1])
+        runs[dev] = ([r.out for r in reqs], eng.epoch, launched)
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    assert runs["cpu"][2] == (0, 0) and min(runs["cuda"][2]) > 0
+
+
+def test_launch_serve_cli_on_card(capsys):
+    rc = launch_serve.main(["--arch", "smollm-135m", "--reduced",
+                            "--requests", "5", "--batch", "2",
+                            "--window", "16", "--prompt-len", "20",
+                            "--max-new", "3"])
+    assert rc == 0
+    assert "served 5/5 requests" in capsys.readouterr().out
