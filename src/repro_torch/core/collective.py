@@ -22,9 +22,14 @@ size: non-power-of-two teams use the elimination derivations. A
 ``Schedule`` carries a per-round op: ``"add"`` rounds accumulate at the
 destination, ``"copy"`` rounds overwrite.
 
-This module holds the pure-Python half only (schedules, fingerprints,
-the host-side simulation); the device executors arrive with the
-training data plane.
+The device executors run over a ``RankStack``: the team of one epoch
+kept as the leading dim of one tensor on one device, the in-process
+counterpart of the reference's ``shard_map`` mesh axis (its CPU tests
+run the same simulation over host devices). ``lax.ppermute`` becomes
+``RankStack.ppermute`` (a rank that is not a destination receives
+zeros), ``lax.axis_index`` ``RankStack.axis_index``, and ``lax.psum``
+the stacked sum broadcast to every rank. Multi-card execution over
+``torch.distributed`` is later work (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..kernels.bucket_combine import bucket_combine
 from .skiplist import HEAD, SkipList
-
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +223,172 @@ def recursive_doubling_schedule(n: int) -> Schedule:
 
 
 # ---------------------------------------------------------------------------
-# Host-side reference execution.
+# Device executors over a stacked team (the reference runs them inside
+# shard_map over ``axis_name``).
 # ---------------------------------------------------------------------------
 def _dst_mask(n: int, round_pairs: Sequence[Tuple[int, int]]):
     m = np.zeros((n,), dtype=np.bool_)
     for _, d in round_pairs:
         m[d] = True
     return m
+
+
+class RankStack:
+    """The ``n`` ranks of one epoch's team as the leading dim of tensors
+    on ``device``: row ``r`` of a stacked tensor is rank ``r``'s value.
+
+    Per-round gate vectors live on the device and are built once per
+    round's pairs, so executing a schedule reads nothing back to the
+    host."""
+
+    def __init__(self, n: int, device="cuda"):
+        assert n >= 1, n
+        self.n = n
+        self.device = torch.device(device)
+        self._gates: Dict[Tuple[Tuple[int, int], ...], torch.Tensor] = {}
+        self._index = torch.arange(n, device=self.device)
+
+    def axis_index(self, ndim: int = 1) -> torch.Tensor:
+        """(n, 1, ...) rank indices, broadcastable against a stacked
+        tensor of ``ndim`` dims."""
+        return self._index.reshape((self.n,) + (1,) * (ndim - 1))
+
+    def gate(self, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """(n,) int32 on the device: 1 where the rank is a destination
+        of the round."""
+        key = tuple(pairs)
+        g = self._gates.get(key)
+        if g is None:
+            g = torch.tensor(_dst_mask(self.n, key).astype(np.int32),
+                             device=self.device)
+            self._gates[key] = g
+        return g
+
+    def ppermute(self, x: torch.Tensor,
+                 pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``lax.ppermute`` over the stacked dim: ``y[dst] = x[src]`` for
+        each pair; a rank that is no destination receives zeros. One
+        device copy per pair (a partial permutation), no gathered
+        temporary."""
+        assert x.shape[0] == self.n, (x.shape, self.n)
+        y = torch.empty_like(x)
+        dsts = set()
+        for s, d in pairs:
+            y[d].copy_(x[s])
+            dsts.add(d)
+        for r in range(self.n):
+            if r not in dsts:
+                y[r].zero_()
+        return y
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum``: the stacked sum, every rank holding it."""
+        return x.sum(0, keepdim=True).expand_as(x).contiguous()
+
+
+def _as_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``(n, rows, cols)`` with each rank's block contiguous,
+    the operand layout of ``bucket_combine``: a stacked bucket buffer
+    (or a readiness group's view of one) as it is, anything else as one
+    row per rank."""
+    if x.ndim == 3 and x.stride(-1) == 1 and x.stride(-2) == x.shape[-1]:
+        return x
+    return x.reshape(x.shape[0], 1, -1)
+
+
+def schedule_allreduce(x: torch.Tensor, stack: RankStack,
+                       sched: Schedule) -> torch.Tensor:
+    """Execute any round ``Schedule`` over the stacked ranks ``x``
+    (``(n, ...)``): per round, the destinations of the partial
+    permutation either accumulate (``add``) or overwrite (``copy``) the
+    incoming value; everyone else keeps their accumulator. Each round's
+    combine is one ``bucket_combine`` call covering every rank (the
+    kernel on the card, its plain version on the CPU)."""
+    acc = _as_rows(x)
+    for r, pairs in enumerate(sched.rounds):
+        y = stack.ppermute(acc, pairs)
+        acc = bucket_combine(acc, y, stack.gate(pairs), op=sched.op(r))
+    return acc.reshape(x.shape)
+
+
+def scsl_allreduce(x: torch.Tensor, stack: RankStack, up: Schedule,
+                   down: Schedule) -> torch.Tensor:
+    """All-reduce(+) with the phaser SCSL/SNSL schedules: reduce up the
+    signal-collection edges, broadcast down the notification edges."""
+    uni = Schedule(up.n, up.rounds + down.rounds, kind="phaser_scsl",
+                   ops=("add",) * up.depth + ("copy",) * down.depth)
+    return schedule_allreduce(x, stack, uni)
+
+
+def halving_doubling_allreduce(x: torch.Tensor, stack: RankStack,
+                               n: int) -> torch.Tensor:
+    """Bandwidth-optimal all-reduce over the stacked ranks ``x``
+    (``(n, ...)``): recursive-halving reduce-scatter then recursive-
+    doubling all-gather over the 2^k core. The ``r = n - 2^k`` extras
+    are retired by a vector-halving 2-1 elimination pre-phase and
+    re-hydrated with one full-sized copy at the end. Relies on
+    ``ppermute`` giving zeros to non-destinations (the extras idle
+    through the core's rounds)."""
+    if n == 1:
+        return x
+    k = 1 << (n.bit_length() - 1)           # largest power of two <= n
+    r = n - k
+    flat = x.reshape(n, -1)
+    orig_size = flat.shape[1]
+    pad = (-orig_size) % (2 * k)            # even halves at every depth
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((n, pad))], dim=1)
+    size = flat.shape[1]
+    idx = stack.axis_index(2)
+    acc = flat
+    if r:
+        # 2-1 elimination: extra k+i <-> core i swap opposite halves.
+        half = size // 2
+        lo, hi = acc[:, :half], acc[:, half:]
+        is_extra = idx >= k
+        has_extra = idx < r
+        pairs1 = ([(k + i, i) for i in range(r)]
+                  + [(i, k + i) for i in range(r)])
+        send1 = torch.where(is_extra, lo, hi)
+        got1 = stack.ppermute(send1, pairs1)
+        lo = torch.where(has_extra, lo + got1, lo)  # core reduces low half
+        hi = torch.where(is_extra, hi + got1, hi)   # extra reduces high half
+        got2 = stack.ppermute(hi, [(k + i, i) for i in range(r)])
+        hi = torch.where(has_extra, got2, hi)       # extra hands it back
+        acc = torch.cat([lo, hi], dim=1)
+    # reduce-scatter among the core: after each round a rank owns half
+    stride = k // 2
+    width = size
+    while stride >= 1:
+        pairs = [(i, i ^ stride) for i in range(k)]
+        keep_low = (idx // stride) % 2 == 0     # low-half keeper this round
+        half = width // 2
+        low, high = acc[:, :half], acc[:, half:]
+        tosend = torch.where(keep_low, high, low)
+        keep = torch.where(keep_low, low, high)
+        got = stack.ppermute(tosend, pairs)
+        acc = keep + got
+        width = half
+        stride //= 2
+    # all-gather back up (doubling)
+    stride = 1
+    while stride < k:
+        pairs = [(i, i ^ stride) for i in range(k)]
+        got = stack.ppermute(acc, pairs)
+        keep_low = (idx // stride) % 2 == 0
+        acc = torch.where(keep_low, torch.cat([acc, got], dim=1),
+                          torch.cat([got, acc], dim=1))
+        stride *= 2
+    if r:
+        # re-hydrate the eliminated extras with the full result
+        got3 = stack.ppermute(acc, [(i, k + i) for i in range(r)])
+        acc = torch.where(idx >= k, got3, acc)
+    return acc[:, :orig_size].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Host-side reference execution.
+# ---------------------------------------------------------------------------
 
 
 def simulate_schedule(sched: Schedule, xs: Sequence[np.ndarray]
@@ -308,6 +473,19 @@ class PhaserCollective:
         if self.kind == "recursive_doubling":
             return self.rd
         return None
+
+    def all_reduce(self, x: torch.Tensor, stack: RankStack) -> torch.Tensor:
+        """All-reduce the stacked ranks ``x`` (``(n, ...)``) with this
+        collective's schedule; every rank ends with the sum."""
+        assert stack.n == self.n, (stack.n, self.n)
+        if self.kind == "xla_psum":
+            return stack.psum(x)
+        if self.kind == "halving_doubling":
+            return halving_doubling_allreduce(x, stack, self.n)
+        return schedule_allreduce(x, stack, self.unified_schedule())
+
+    def pmean(self, x: torch.Tensor, stack: RankStack) -> torch.Tensor:
+        return self.all_reduce(x, stack) / self.n
 
     # --- introspection / roofline ------------------------------------------
     def stats(self) -> Dict[str, int]:

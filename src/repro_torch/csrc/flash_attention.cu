@@ -30,6 +30,10 @@
 // so Sq = 1, 7 or 100 work. q, k, v and o are addressed through element
 // strides of their three outer dims (last dim contiguous), so the
 // model's (B, S, H, hd) projections go in as transposed views, uncopied.
+// For training, the kernel also writes each row's log-sum-exp
+// m + log(l) (f32, (B, H, Sq) contiguous) beside the output, which
+// flash_attention_bwd.cu reads to recompute P without the (Sq, Sk)
+// matrix; the serving path passes a null pointer and writes none.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -57,7 +61,8 @@ struct Strides {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int H, int Kh,
+            const T* __restrict__ v, T* __restrict__ out,
+            float* __restrict__ lse, int H, int Kh,
             int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
             float sm_scale, int causal, int window) {
   constexpr int QST = HD + 1;     // padded rows of Qs / Ks
@@ -197,11 +202,14 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       from_f32(ob + (long long)r * os.s + tx + 8 * jj, acc[i][jj] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + r] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B,
               int H, int Kh, int Sq, int Sk, Strides qs, Strides ks,
               Strides vs, Strides os, float sm_scale, int causal, int window,
               cudaStream_t stream) {
@@ -214,13 +222,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   attn_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, Kh, Sq, Sk, qs, ks,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, Kh, Sq, Sk, qs, ks,
       vs, os, sm_scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B,
            int H, int Kh, int Sq, int Sk, int hd, const long long* st,
            float sm_scale, int causal, int window, cudaStream_t stream) {
   if (B <= 0 || Kh <= 0 || H % Kh != 0 || Sq <= 0 || Sk <= 0)
@@ -229,13 +238,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   switch (hd) {
     case 16:
-      return launch_hd<T, 16>(q, k, v, out, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
+      return launch_hd<T, 16>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     case 32:
-      return launch_hd<T, 32>(q, k, v, out, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
+      return launch_hd<T, 32>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     case 64:
-      return launch_hd<T, 64>(q, k, v, out, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
+      return launch_hd<T, 64>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     case 128:
-      return launch_hd<T, 128>(q, k, v, out, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
+      return launch_hd<T, 128>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -243,14 +252,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// strides: 12 int64 element strides, (batch, head, seq) for q, k, v, out
+// strides: 12 int64 element strides, (batch, head, seq) for q, k, v, out;
+// lse: (B, H, Sq) f32 contiguous, or null
 #define ATTN_ENTRY(NAME, T)                                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* out, \
-                      int B, int H, int Kh, int Sq, int Sk, int hd,           \
-                      const long long* strides, float sm_scale, int causal,   \
-                      int window, void* stream) {                             \
-    return launch<T>(q, k, v, out, B, H, Kh, Sq, Sk, hd, strides, sm_scale,   \
-                     causal, window, (cudaStream_t)stream);                   \
+                      float* lse, int B, int H, int Kh, int Sq, int Sk,       \
+                      int hd, const long long* strides, float sm_scale,       \
+                      int causal, int window, void* stream) {                 \
+    return launch<T>(q, k, v, out, lse, B, H, Kh, Sq, Sk, hd, strides,        \
+                     sm_scale, causal, window, (cudaStream_t)stream);         \
   }
 
 ATTN_ENTRY(flash_attention_f32, float)

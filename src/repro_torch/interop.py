@@ -1,7 +1,10 @@
-"""Carry parameters from the JAX package into the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
 ``jax.random`` streams cannot be reproduced in PyTorch, so parity tests
-initialise parameters with the reference and move them across as numpy.
+initialise parameters with the reference and move them across as numpy;
+``params_to_numpy`` and ``opt_state_to_numpy`` bring the port's back in
+the reference's tree layout for comparison.
 The port keeps the reference's parameter tree and its ``(in, out)``
 linear layout (``x @ w``), so the mapping is name for name with no
 transposes: ``embed``, ``final_norm`` (``lm_head`` when untied) and
@@ -10,12 +13,15 @@ mlp/{gate, up, down}}`` stacked on the layer dim.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .optim import OptState
+from .utils import tree_map
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
@@ -53,3 +59,32 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     if not cfg.tie_embeddings:
         out["lm_head"] = t(tree["lm_head"], (V, D))
     return out
+
+
+def params_to_numpy(params: Dict, cfg: ModelConfig) -> Dict:
+    """The port's parameters as the reference's tree of numpy arrays
+    (f32; the same keys and shapes as ``params_from_jax`` takes)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, device="cuda") -> OptState:
+    """The reference's ``OptState`` (numpy leaves, or its ``_asdict()``)
+    as the port's: f32 moments shaped like the parameters, an int32
+    step."""
+    st = state._asdict() if hasattr(state, "_asdict") else state
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    return OptState(
+        step=torch.tensor(np.asarray(st["step"]), dtype=torch.int32,
+                          device=device),
+        mu=params_from_jax(st["mu"], f32, device=device),
+        nu=params_from_jax(st["nu"], f32, device=device))
+
+
+def opt_state_to_numpy(state: OptState) -> Dict:
+    """The port's ``OptState`` as ``{"step", "mu", "nu"}`` numpy trees in
+    the reference's layout."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    return {"step": to_np(state.step), "mu": tree_map(to_np, state.mu),
+            "nu": tree_map(to_np, state.nu)}

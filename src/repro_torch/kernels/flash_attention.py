@@ -13,6 +13,15 @@ outer dims (last dim contiguous), so callers pass transposed views of
 a ``(B, H, Sq, hd)`` view of a ``(B, Sq, H, hd)`` buffer, so the model's
 head merge after it is free. Unlike the Pallas kernel, any Sq and Sk work
 (ragged tails are masked, not asserted).
+
+Training: where autograd needs a gradient of a CUDA tensor,
+``flash_attention`` goes through ``FlashAttentionFn``. Its forward runs
+the same kernel and also keeps each row's log-sum-exp; its backward is
+``flash_attention_bwd``, the hand-written kernel
+``csrc/flash_attention_bwd.cu``, which recomputes P from that LSE. A CPU
+tensor keeps the plain ``attention_ref``, which autograd differentiates
+(``attention_bwd_ref`` is that gradient as a function). Each wrapper
+counts its own launches; a recomputed forward (remat) counts again.
 """
 from __future__ import annotations
 
@@ -51,53 +60,82 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", w, vr).to(q.dtype)
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True,
+                      sliding_window: Optional[int] = None):
+    """Plain version of the gradient: autograd of ``attention_ref``.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal,
+                            sliding_window=sliding_window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 _fns = {}
 
 
-def _kernel(dtype: torch.dtype):
-    if not _fns:
-        lib = build.load("flash_attention")
-        for name, dt in (("flash_attention_f32", torch.float32),
-                         ("flash_attention_bf16", torch.bfloat16)):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_void_p])
+def _kernel(name: str, dtype: torch.dtype):
+    if name not in _fns:
+        lib = build.load(name)
+        for dt, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            fn = getattr(lib, f"{name}_{suffix}")
+            if name == "flash_attention":
+                # q, k, v, out, lse, B, H, Kh, Sq, Sk, hd, strides, scale,
+                # causal, window, stream
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
+            else:
+                # q, k, v, o, dout, lse, D, dq, dk, dv, B, H, Kh, Sq, Sk,
+                # hd, strides, scale, causal, window, stream
+                fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _fns[dt] = fn
-    return _fns[dtype]
+            _fns.setdefault(name, {})[dt] = fn
+    return _fns[name][dtype]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sliding_window: Optional[int] = None) -> torch.Tensor:
-    """q: (B,H,Sq,hd); k/v: (B,Kh,Sk,hd) -> (B,H,Sq,hd). CPU tensors take
-    ``attention_ref``; CUDA tensors launch the Hopper kernel."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal,
-                             sliding_window=sliding_window)
+def _check(name, tensors, q, k):
+    """Device, dtype and shape checks shared by both CUDA wrappers."""
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: tensors on {q.device}, "
-                         f"{k.device}, {v.device}")
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: tensors on "
+                         f"{', '.join(str(t.device) for t in tensors)}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; want one of float32 / bfloat16")
-    if (k.shape != (B, Kh, Sk, hd) or v.shape != k.shape or H % Kh
-            or hd not in HEAD_DIMS or min(B, Sq, Sk) < 1):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention: the head dim must be contiguous")
+            or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: dtypes "
+                        f"{', '.join(str(t.dtype) for t in tensors)}; "
+                        f"want one of float32 / bfloat16")
+    kv = tensors[1:3]
+    if (any(t.shape != (B, Kh, Sk, hd) for t in kv) or H % Kh
+            or hd not in HEAD_DIMS or min(B, Sq, Sk) < 1
+            or any(t.shape != q.shape for t in tensors[3:])):
+        raise ValueError(f"{name}: shapes "
+                         f"{', '.join(str(tuple(t.shape)) for t in tensors)}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name}: the head dim must be contiguous")
+
+
+def _forward(q, k, v, causal, sliding_window, want_lse):
+    """Launch the forward kernel; returns (out, lse or None)."""
+    _check("flash_attention", (q, k, v), q, k)
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    fn = _kernel(q.dtype)
+    fn = _kernel("flash_attention", q.dtype)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if want_lse else None,
                 B, H, Kh, Sq, Sk, hd, ctypes.addressof(strides),
                 1.0 / math.sqrt(hd), int(causal),
                 int(sliding_window or 0),
@@ -106,7 +144,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"CUDA error {rc}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: Optional[torch.Tensor], *, causal: bool = True,
+                        sliding_window: Optional[int] = None):
+    """Gradient of ``flash_attention``: (dq, dk, dv), each in the layout
+    (strides) of its input. ``out`` and ``lse`` are the forward's. CPU
+    tensors take ``attention_bwd_ref`` (``out``/``lse`` unused); CUDA
+    tensors launch the Hopper kernel."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, dout, causal=causal,
+                                 sliding_window=sliding_window)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    _check("flash_attention_bwd", (q, k, v, out, dout), q, k)
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    if lse is None or lse.shape != (B, H, Sq) or not lse.is_contiguous() \
+            or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError("flash_attention_bwd: lse must be the forward's "
+                         "(B, H, Sq) f32 log-sum-exp")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(s for t in ts
+                                         for s in t.stride()[:3]))
+    fn = _kernel("flash_attention_bwd", q.dtype)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, H, Kh, Sq, Sk, hd, ctypes.addressof(strides),
+                1.0 / math.sqrt(hd), int(causal), int(sliding_window or 0),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel (keeping the LSE) and the backward kernel,
+    joined for autograd. CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window):
+        out, lse = _forward(q, k, v, causal, sliding_window, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sliding_window = causal, sliding_window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal,
+                                         sliding_window=ctx.sliding_window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sliding_window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,Sq,hd); k/v: (B,Kh,Sk,hd) -> (B,H,Sq,hd). CPU tensors take
+    ``attention_ref``; CUDA tensors launch the Hopper kernel, through
+    ``FlashAttentionFn`` where autograd needs their gradient."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal,
+                             sliding_window=sliding_window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, sliding_window)
+    return _forward(q, k, v, causal, sliding_window, want_lse=False)[0]
 
 
 flash_attention.launches = 0

@@ -68,10 +68,12 @@ def attention(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
               rope_theta: float, causal: bool = True,
               sliding_window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill self-attention. x: (B,S,D); positions: (B,S) = arange(S)
-    per row (the kernel masks causality on indices, as the Pallas kernel
-    does). Returns (out (B,S,D), k, v), k post-RoPE, both (B,S,Kh,hd):
-    the cache handoff, so the projections are not recomputed."""
+    """Prefill / training self-attention. x: (B,S,D); positions: (B,S) =
+    arange(S) per row (the kernel masks causality on indices, as the
+    Pallas kernel does). Returns (out (B,S,D), k, v), k post-RoPE, both
+    (B,S,Kh,hd): the cache handoff, so the projections are not
+    recomputed. Differentiable: on the card the gradient runs the
+    flash-attention backward kernel."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)

@@ -1,9 +1,9 @@
-"""Model API (serving half) and the port's own config registry.
+"""Model API and the port's own config registry.
 
 Port of ``repro/models/registry.py``. ``ModelAPI`` hides family
-differences behind init / prefill / decode; the loss, pipeline-stage and
-input-spec halves arrive with the training slice. Only the families the
-port has (dense) are registered.
+differences behind init / loss / prefill / decode; the pipeline-stage
+functions wait for ROADMAP A.9 and the input specs for the dry-run
+tooling (A.11). Only the families the port has (dense) are registered.
 """
 from __future__ import annotations
 
@@ -13,7 +13,16 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..utils import tree_flatten, tree_unflatten
 from . import transformer
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 @dataclass(frozen=True)
@@ -23,6 +32,35 @@ class ModelAPI:
     # ------------------------------------------------------------- init
     def init_params(self, generator: torch.Generator, device="cuda"):
         return transformer.init_params(self.cfg, generator, device)
+
+    def param_spec(self):
+        """The parameter tree as ``meta`` tensors (no allocation)."""
+        return transformer.param_spec(self.cfg)
+
+    # ------------------------------------------------------------- train
+    def loss_fn(self, params, batch: Dict, *, remat: bool = False
+                ) -> Tuple[torch.Tensor, Dict]:
+        logits, aux, _ = transformer.forward(self.cfg, params,
+                                             batch["tokens"], remat=remat)
+        loss = _xent(logits, batch["targets"])
+        total = loss + 0.01 * aux
+        return total, {"loss": loss, "aux": aux}
+
+    def loss_from_logits(self, logits, targets):
+        return _xent(logits, targets)
+
+    def value_and_grad(self, params, batch: Dict, *, remat: bool = False):
+        """``jax.value_and_grad(loss_fn, has_aux=True)``: returns
+        ((total, metrics), grads), grads a tree like ``params`` in the
+        parameters' dtypes, everything detached."""
+        paths, leaves = tree_flatten(params)
+        with torch.enable_grad():
+            req = [p.detach().requires_grad_(True) for p in leaves]
+            total, metrics = self.loss_fn(tree_unflatten(paths, req), batch,
+                                          remat=remat)
+            grads = torch.autograd.grad(total, req)
+        return ((total.detach(), {k: v.detach() for k, v in metrics.items()}),
+                tree_unflatten(paths, list(grads)))
 
     # ------------------------------------------------------------- serve
     def prefill_full_fn(self, params, batch: Dict):

@@ -1,0 +1,270 @@
+"""Training loop: phaser-coordinated, elastic, checkpointable. Port of
+``repro/train/loop.py``.
+
+The control plane is the phaser over the (simulated) worker group: every
+step is one phaser phase, and churn requested during a phase lands as a
+new epoch at its boundary (``runtime_elastic.elastic_phaser``). At each
+boundary the loop checkpoints, then swaps its step for the new epoch's,
+then proves the epoch against the protocol actors (``verify_epoch``).
+
+With a runtime attached, the step is the execution engine's program
+whenever the batch divides the team (``device_collective=None``; True
+requires it, False never takes it): the epoch's ranks are stacked on one
+device, each computes its shard's grads, and the epoch's schedule syncs
+them through the ``bucket_combine`` kernel. Programs come from an
+epoch-aware cache keyed by the member set and kind plus the overlap
+config, so a boundary that revisits a team reuses its program (and its
+buffer). Every checkpoint carries the live program key, so a resume
+builds the checkpointed epoch's program before step 1.
+
+The per-worker alive mask is evaluated after the step's events: a
+worker that fails at step s contributes zeros in step s itself, while
+its epoch boundary lands after it.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..data import SyntheticLM
+from ..models.registry import ModelAPI
+from ..obs import timeline as obs_timeline
+from ..obs.metrics import MetricsRegistry
+from ..optim import AdamW, OptState
+from ..runtime_elastic.elastic_phaser import ElasticPhaserRuntime
+from ..utils import to_device_copy
+from .step import build_train_step
+
+
+@dataclass
+class TrainLoop:
+    api: ModelAPI
+    opt: AdamW
+    data: SyntheticLM
+    ckpt: Optional[CheckpointManager] = None
+    ckpt_every: int = 50
+    remat: bool = False
+    microbatches: int = 1
+    log_every: int = 10
+    metrics_log: List[Dict] = field(default_factory=list)
+    # --- elastic control plane (optional) --------------------------------
+    runtime: Optional[ElasticPhaserRuntime] = None
+    # step -> list of ("join", None) | ("leave", wid|None) | ("fail", wid|None)
+    elastic_events: Dict[int, List] = field(default_factory=dict)
+    epoch_log: List[Dict] = field(default_factory=list)
+    # engine data plane: None = whenever a runtime is attached and the
+    # batch divides the team, True = required, False = plain step
+    device_collective: Optional[bool] = None
+    # pipelined round order over the readiness groups (engine path)
+    overlap_sync: bool = False
+    timeline: Optional[obs_timeline.Timeline] = None
+    metrics: Optional[MetricsRegistry] = None
+    device: Any = "cuda"
+    _progs: Any = field(default=None, init=False, repr=False)
+
+    @property
+    def _overlap_mode(self) -> str:
+        return "pipelined" if self.overlap_sync else "eager"
+
+    def _apply_elastic_events(self, step: int) -> None:
+        for kind, arg in self.elastic_events.get(step, []):
+            if kind == "join":
+                self.runtime.request_join(arg, step=step)
+                continue
+            live = self.runtime.live
+            if arg is None:
+                if not live:
+                    raise ValueError(f"elastic event {kind}@{step}: no "
+                                     "live workers left to remove")
+                wid = max(live)
+            elif arg not in live:
+                raise ValueError(f"elastic event {kind}:{arg}@{step}: "
+                                 f"worker {arg} is not live "
+                                 f"(live={sorted(live)})")
+            else:
+                wid = arg
+            self.runtime.request_leave(wid, fail=(kind == "fail"),
+                                       step=step)
+
+    def _replay_elastic_events(self, upto: int) -> None:
+        """Resume path: rebuild the runtime's live set and epoch index by
+        replaying the churn schedule through the real protocol up to the
+        restored step. Only a fresh runtime is replayed."""
+        if self.runtime.events:
+            return
+        for s in sorted(k for k in self.elastic_events if k < upto):
+            self._apply_elastic_events(s)
+            self.runtime.advance(step=s)
+
+    def _use_program(self, pc) -> bool:
+        """Whether the epoch's step is the engine's program: the team
+        (and per-rank microbatching) must divide the batch."""
+        if self.device_collective is False or pc is None:
+            return False
+        ok = (pc.n >= 1 and self.data.batch % pc.n == 0
+              and (self.data.batch // pc.n) % self.microbatches == 0)
+        if self.device_collective is True:
+            assert ok, (f"device_collective requested but team={pc.n}, "
+                        f"batch={self.data.batch}, "
+                        f"microbatches={self.microbatches}")
+        return ok
+
+    def _ensure_progs(self):
+        """The epoch-aware program cache; the overlap/microbatch config
+        rides the cache key."""
+        if self._progs is None:
+            from ..collective_exec import ProgramCache
+            self._progs = ProgramCache(
+                lambda c: build_train_step(
+                    self.api, self.opt, remat=self.remat,
+                    microbatches=self.microbatches, collective=c,
+                    program=True, overlap=self._overlap_mode,
+                    device=self.device),
+                extra_key=(self._overlap_mode, self.microbatches),
+                metrics=self.metrics)
+        return self._progs
+
+    def _build_step(self):
+        pc = (self.runtime.epoch.collective
+              if self.runtime is not None else None)
+        if self._use_program(pc):
+            return self._ensure_progs().get(pc)
+        return build_train_step(self.api, self.opt, remat=self.remat,
+                                microbatches=self.microbatches,
+                                collective=pc, device=self.device)
+
+    # ------------------------------------------------- program-key ckpt
+    def _program_key(self) -> Optional[Dict]:
+        """Checkpointable identity of the current epoch's program (member
+        set, kind, seed/p, overlap config)."""
+        if self.runtime is None or self._progs is None:
+            return None
+        key = self.runtime.epoch_key()
+        if key is None:
+            return None
+        return {"process_set": [0], **key, "overlap": self._overlap_mode,
+                "microbatches": self.microbatches,
+                "pipeline_stages": 1, "interleave": 1}
+
+    def _prebuild_from_key(self, pk: Optional[Dict]) -> None:
+        """Resume path: rebuild the checkpointed epoch's collective and
+        build (or cache-hit) its program before the first step."""
+        if not pk or self.device_collective is False:
+            return
+        if (pk.get("overlap") != self._overlap_mode
+                or pk.get("microbatches") != self.microbatches
+                or (self.runtime is not None
+                    and (pk.get("kind") != self.runtime.kind
+                         or pk.get("seed") != self.runtime.seed))):
+            return
+        from ..core.collective import PhaserCollective
+        keys = tuple(pk["member_set"])
+        pc = PhaserCollective(len(keys), pk.get("axis", "data"),
+                              kind=pk["kind"], seed=pk["seed"],
+                              p=pk["p"], keys=keys,
+                              leaf_keys=tuple(pk.get("leaf_keys", ())))
+        if self._use_program(pc):
+            self._ensure_progs().get(pc)
+
+    def run(self, steps: int, *, params=None, opt_state=None,
+            resume: bool = False, on_step: Optional[Callable] = None):
+        if self.timeline is not None:
+            obs_timeline.activate(self.timeline)
+        ts = self._build_step()
+        start = 0
+        if params is None:
+            params = self.api.init_params(
+                torch.Generator(self.device).manual_seed(0), self.device)
+        if opt_state is None:
+            opt_state = self.opt.init(params)
+        if resume and self.ckpt is not None and self.ckpt.latest_step():
+            # build the checkpointed epoch's program before the restore
+            # and the event replay: the re-build below is a cache hit
+            self._prebuild_from_key(self.ckpt.program_key())
+            tpl = {"params": params, "opt": opt_state._asdict()}
+            start, tree, extra = self.ckpt.restore(tpl)
+            params = tree["params"]
+            opt_state = OptState(**tree["opt"])
+            if "data" in extra:
+                self.data.load_state_dict(extra["data"])
+            if self.runtime is not None:
+                self._replay_elastic_events(start)
+                ts = self._build_step()
+
+        for step in range(start, steps):
+            if self.runtime is not None:
+                self._apply_elastic_events(step)
+            batch = {k: to_device_copy(v, self.device)
+                     for k, v in next(self.data).items()}
+            t0 = time.time()
+            tp0 = (self.timeline.now() if self.timeline is not None
+                   else 0.0)
+            if ts.program is not None:
+                # per-worker alive mask, after this step's events: a
+                # worker that left mid-epoch contributes zeros
+                ep = self.runtime.epoch
+                alive = torch.tensor([1.0 if w in self.runtime.live else 0.0
+                                      for w in ep.live],
+                                     dtype=torch.float32, device=self.device)
+                params, opt_state, metrics = ts.fn(params, opt_state, batch,
+                                                   alive)
+            else:
+                params, opt_state, metrics = ts.fn(params, opt_state, batch)
+            if self.timeline is not None:
+                self.timeline.complete("train.step", tp0,
+                                       args={"step": step})
+            if self.metrics is not None:
+                self.metrics.observe("train.step_seconds",
+                                     time.time() - t0)
+            if self.runtime is not None:
+                # the step is one phaser phase; churn requested above
+                # lands as a new epoch exactly at this boundary
+                before = self.runtime.epoch.index
+                released = self.runtime.advance(step=step)
+                ep = self.runtime.epoch
+                if ep.index != before:
+                    # checkpoint-consistent swap: persist, then re-build
+                    if self.ckpt is not None:
+                        self.ckpt.save(step + 1, params, opt_state,
+                                       extra={"data":
+                                              self.data.state_dict()},
+                                       program_key=self._program_key())
+                    tb = (self.timeline.now()
+                          if self.timeline is not None else 0.0)
+                    ts = self._build_step()
+                    if self.timeline is not None:
+                        self.timeline.complete("epoch.relower", tb,
+                                               args={"epoch": ep.index})
+                    if self.metrics is not None:
+                        self.metrics.inc("train.relower")
+                    self.runtime.verify_epoch()
+                    self.epoch_log.append({
+                        "step": step, "phase": released,
+                        "epoch": ep.index, "live": list(ep.live),
+                        "kind": ep.kind, **ep.stats()})
+            if step % self.log_every == 0 or step == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["dt"] = time.time() - t0
+                if self.runtime is not None:
+                    m["epoch"] = self.runtime.epoch.index
+                    m["live"] = len(self.runtime.live)
+                self.metrics_log.append(m)
+            if self.ckpt is not None and (step + 1) % self.ckpt_every == 0:
+                self.ckpt.save(step + 1, params, opt_state,
+                               extra={"data": self.data.state_dict()},
+                               program_key=self._program_key())
+            if on_step is not None:
+                on_step(step, params, metrics)
+        if self.ckpt is not None:
+            self.ckpt.save(steps, params, opt_state,
+                           extra={"data": self.data.state_dict()},
+                           program_key=self._program_key())
+            self.ckpt.wait()
+        if self.timeline is not None:
+            obs_timeline.deactivate()
+        return params, opt_state

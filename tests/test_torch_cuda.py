@@ -1,26 +1,40 @@
-"""The port's CUDA kernels, model and engine on the card, held against
-their plain PyTorch versions (the CPU path) on the same inputs. Beyond
-the serving shapes ``chip_smoke.py`` checks, these sweep every head dim
-the kernels take, group sizes 1 to 16, ragged lengths, sliding windows,
-holes in the decode mask, and unaligned and contiguous layouts.
+"""The port's CUDA kernels, model, engine and train step on the card,
+held against their plain PyTorch versions (the CPU path) on the same
+inputs. Beyond the shapes ``chip_smoke.py`` checks, these sweep every
+head dim the kernels take, group sizes 1 to 16, ragged lengths, sliding
+windows, holes in the decode mask, unaligned and contiguous layouts,
+the attention backward, the bucket combine over strided group views, and
+one gradient-sync step per schedule kind.
 
 They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: a kernel against its plain version, bf16 2e-2 and f32 1e-4
-(sums in another order); the f32 model on the card against the CPU,
-1e-4. f32 matmuls run without TF32.
+(sums in another order; the backward's relative to max(1, max|ref|));
+the bucket combine bitwise; the f32 model on the card against the CPU,
+1e-4, and its gradients 1e-4 of each leaf's largest value; a train
+step's parameters 1e-4 (Adam's first step divides each gradient by its
+own magnitude, so rounding in a near-zero gradient shows). f32 matmuls
+run without TF32.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.collective_exec import build_gradsync_program
+from repro_torch.core.collective import (ALLREDUCE_KINDS, PhaserCollective,
+                                        RankStack)
+from repro_torch.data import make_batch
+from repro_torch.kernels import bucket_combine as BC
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_api, get_config
+from repro_torch.optim import AdamW
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.utils import tree_flatten
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +210,139 @@ def test_launch_serve_cli_on_card(capsys):
                             "--max-new", "3"])
     assert rc == 0
     assert "served 5/5 requests" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ training
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,S,hd,win", [
+    (3, 9, 3, 1, 64, None),             # one token
+    (3, 9, 3, 7, 64, None),             # ragged tail
+    (3, 9, 3, 100, 64, 5),              # sliding window
+    (2, 9, 3, 300, 64, 200),            # window across tiles
+    (1, 4, 1, 130, 128, None),          # hd 128, g = 4
+    (2, 4, 4, 65, 16, None),            # hd 16, no grouping
+    (1, 16, 2, 90, 32, 33),             # g = 8
+])
+def test_flash_attention_backward_matches_plain(B, H, Kh, S, hd, win,
+                                                dtype):
+    """Through autograd: ``flash_attention`` on tensors that need a
+    gradient runs ``FlashAttentionFn``; its dq/dk/dv against autograd of
+    the plain version, in the layout of the inputs."""
+    gen = torch.Generator("cuda").manual_seed(S + hd)
+    q = _randn(gen, (B, S, H, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    do = _randn(gen, (B, S, H, hd), dtype).transpose(1, 2)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    n = (FA.flash_attention.launches, FA.flash_attention_bwd.launches)
+    out = FA.flash_attention(*leaves, causal=True, sliding_window=win)
+    out.backward(do)
+    assert (FA.flash_attention.launches, FA.flash_attention_bwd.launches) \
+        == (n[0] + 1, n[1] + 1)
+    want = FA.attention_bwd_ref(q, k, v, do, causal=True,
+                                sliding_window=win)
+    for x, w in zip(leaves, want):
+        g = x.grad
+        assert g.dtype == dtype and g.stride() == x.stride()
+        assert _err(g, w) <= TOL[dtype] * max(1.0, w.float().abs().max()
+                                              .item())
+
+
+@pytest.mark.parametrize("op", ["add", "copy"])
+def test_bucket_combine_matches_plain_bitwise(op):
+    gen = torch.Generator("cuda").manual_seed(1)
+    acc = _randn(gen, (6, 12, 1024), torch.float32)
+    y = _randn(gen, (6, 5, 1024), torch.float32)
+    gate = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.int32,
+                        device="cuda")
+    n = BC.bucket_combine.launches
+    for a in (acc[:, 3:8], acc[:, :5].contiguous()):   # group view, whole
+        got = BC.bucket_combine(a, y, gate, op=op)
+        assert torch.equal(got, BC.combine_ref(a, y, gate, op=op))
+    flat = acc[0, :5]                                  # one rank, 2-D
+    got = BC.bucket_combine(flat, y[0], gate[:1], op=op)
+    assert torch.equal(got, BC.combine_ref(flat, y[0], gate[0], op=op))
+    odd = _randn(gen, (3, 2, 130), torch.float32)[:, :, 1:129]
+    with pytest.raises(ValueError, match="contiguous"):
+        BC.bucket_combine(odd, odd, gate[:3], op=op)
+    with pytest.raises(ValueError, match="gate"):
+        BC.bucket_combine(acc, acc, gate.cpu(), op=op)
+    assert BC.bucket_combine.launches == n + 3
+
+
+@pytest.mark.parametrize("shape", [(5, 256), (3, 33)], ids=str)
+@pytest.mark.parametrize("kind", ["phaser_scsl", "recursive_doubling"])
+def test_all_reduce_on_card_launches_the_kernel(kind, shape):
+    """The public all-reduce of a card stack runs every round's combine
+    through the kernel, one launch a round, bitwise the CPU's result."""
+    n = 6
+    x = torch.randn((n,) + shape, generator=torch.Generator().manual_seed(2))
+    pc = PhaserCollective(n, "data", kind=kind, seed=0)
+    before = BC.bucket_combine.launches
+    got = pc.all_reduce(x.cuda(), RankStack(n, "cuda"))
+    assert BC.bucket_combine.launches == before + pc.stats()["rounds"]
+    assert torch.equal(got.cpu(), pc.all_reduce(x, RankStack(n, "cpu")))
+    mean = pc.pmean(x.cuda(), RankStack(n, "cuda"))
+    assert BC.bucket_combine.launches == before + 2 * pc.stats()["rounds"]
+    assert torch.equal(mean, got / n)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_model_grads_on_card_match_cpu(remat):
+    cfg = get_config("smollm-135m").reduced(n_heads=6, n_kv_heads=2)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    b = make_batch(cfg.vocab_size, 3, 40, seed=0, step=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bt = {k: torch.tensor(v, device=dev) for k, v in b.items()}
+        out[dev] = api.value_and_grad(_to(params, dev), bt, remat=remat)
+    (lc, _), gc = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    assert abs(lc.item() - lg.item()) <= 1e-4
+    for a, w in zip(tree_flatten(gg)[1], tree_flatten(gc)[1]):
+        assert a.is_cuda
+        assert (a.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("kind", ALLREDUCE_KINDS)
+def test_program_step_on_card_matches_cpu(kind):
+    """One gradient-sync step at n = 6 with a departed worker, on the
+    card (kernels) and on the CPU (plain versions); the pipelined round
+    order is bitwise eager on the card."""
+    cfg = get_config("smollm-135m").reduced()
+    api = get_api(cfg)
+    opt = AdamW(lr=1e-3, warmup=2, total_steps=10)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    b = make_batch(cfg.vocab_size, 12, 16, seed=0, step=0)
+    res = {}
+    for dev, ov in (("cpu", "eager"), ("cuda", "eager"),
+                    ("cuda", "pipelined")):
+        prog = build_gradsync_program(
+            api, opt, PhaserCollective(6, "data", kind=kind, seed=0),
+            device=dev, overlap=ov)
+        p = _to(params, dev)
+        alive = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.float32,
+                             device=dev)
+        n = BC.bucket_combine.launches
+        newp, _, pm = prog.step(p, opt.init(p), {
+            k: torch.tensor(v, device=dev) for k, v in b.items()}, alive)
+        if dev == "cuda" and kind in ("phaser_scsl", "recursive_doubling"):
+            assert BC.bucket_combine.launches > n
+        res[(dev, ov)] = (tree_flatten(newp)[1], prog.reduce_metrics(pm))
+    for a, w in zip(res[("cuda", "eager")][0], res[("cpu", "eager")][0]):
+        assert (a.cpu() - w).abs().max() <= 1e-4
+    for a, w in zip(res[("cuda", "eager")][0], res[("cuda", "pipelined")][0]):
+        assert torch.equal(a, w)
+    assert abs(res[("cuda", "eager")][1]["loss"].item()
+               - res[("cpu", "eager")][1]["loss"].item()) <= 1e-4
+
+
+def test_launch_train_cli_on_card(capsys):
+    rc = launch_train.main(["--arch", "smollm-135m", "--reduced",
+                            "--workers", "3", "--batch", "12", "--seq",
+                            "32", "--steps", "8", "--elastic",
+                            "join@2,fail@5"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert out.count('{"epoch_boundary"') == 2

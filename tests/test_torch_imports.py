@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports with ``jax`` and
 ``repro`` blocked, and no file of it (nor ``chip_smoke.py``) imports
-either."""
+either. The module list covers every subpackage: serving, kernels,
+optim, data, collective_exec, train, checkpoint and both launchers."""
 import ast
 import os
 import subprocess
@@ -26,8 +27,18 @@ def _modules():
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
-    assert "repro_torch.serve.engine" in mods
-    assert "repro_torch.kernels.flash_decode" in mods
+    for m in ("repro_torch.serve.engine", "repro_torch.kernels.flash_decode",
+              "repro_torch.kernels.bucket_combine", "repro_torch.utils",
+              "repro_torch.optim.adamw", "repro_torch.data.synthetic",
+              "repro_torch.obs.timeline", "repro_torch.collective_exec",
+              "repro_torch.collective_exec.buckets",
+              "repro_torch.collective_exec.executor",
+              "repro_torch.collective_exec.program",
+              "repro_torch.collective_exec.cache",
+              "repro_torch.train.step", "repro_torch.train.loop",
+              "repro_torch.checkpoint.manager",
+              "repro_torch.launch.train"):
+        assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -142,7 +142,8 @@ def test_a_non_cpu_tensor_never_takes_the_plain_version():
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
-    assert build.sources() == ["flash_attention", "flash_decode"]
+    assert build.sources() == ["bucket_combine", "flash_attention",
+                               "flash_attention_bwd", "flash_decode"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
