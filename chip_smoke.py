@@ -50,12 +50,42 @@ Phases, in order; any failure exits non-zero and no result is printed:
    reduced row equal to the sum of the stack it synced. A profiled
    extra step splits device time among forward+backward, sync and the
    optimizer (full table in ``chiprun_out/train_profile.txt``).
+8. hybrid parity: ``mamba2_scan`` against its plain version at
+   zamba2-7b's full-width prefill (B=2, NH=112, S=2048, P=N=64), at a
+   ragged S=1000 and at one chunk (S=64), bf16 and f32 x, y in f32 as
+   the model asks, within 3e-2 / 1e-3 (relative and absolute, the
+   reference kernel test's); flash_attention and flash_decode at the
+   shared block's hd 112 (32 heads) within 2e-2 / 1e-4; then each timed
+   (no PyTorch call computes the scan: its library time is null);
+9. hybrid reference: reduced zamba2 in f32, kernels on the card against
+   plain versions on the CPU: prefill and admission-pass logits within
+   1e-4, the same requests served with identical token streams, epochs
+   and ``serve.*`` counters;
+10. hybrid cross-check: zamba2-7b at full width, depth 3, f32: the
+   chunked scan's logits (``prefill_full_fn`` at each prompt's len-1)
+   against the recurrence's (``prefill_state_fn``) within 1e-3
+   relative L2, lengths [512, 301];
+11. hybrid prefill: zamba2-7b at full width and depth (81 Mamba2
+   layers, 27 shared-block applications, bf16, random weights from a
+   seeded generator): ``prefill_fn`` on 2 x 2048 tokens three times,
+   with 81 ``mamba2_scan`` and 27 ``flash_attention`` launches a forward
+   exactly; then the cross-check at full depth in bf16 against
+   ``CROSS_BF16_BOUND`` (PERF.md gives its reason), lengths [256, 141];
+12. hybrid serve: the same model through ``ServeEngine`` (batch 4,
+   window 256): 8 prompts of 4..200 tokens (recurrent bulk admission)
+   plus one of 300 (the sequential path), 16 new tokens each; every
+   request drained with in-vocabulary tokens, 8 recurrent and 1
+   sequential admissions, ``flash_decode`` launched; a profiled decode
+   step and prefill (full tables in ``hybrid_profile.txt`` beside the
+   other logs).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(all four kernels; ``launches`` sums the serve and train runs, split in
-``launches_by_path``), prefill, decode and training rates, and as the
-last line ``{"ok": true, "device": {...}}``. f32 matmuls run without
-TF32 (``allow_tf32`` off) wherever f32 results are compared.
+(all five kernels, plus the attention kernels' rows at hd 112;
+``launches`` sums the serve, train, hybrid prefill and hybrid serve
+runs, split in ``launches_by_path``), prefill, decode and training
+rates, and as the last line ``{"ok": true, "device": {...}}``. f32
+matmuls run without TF32 (``allow_tf32`` off) wherever f32 results are
+compared.
 """
 from __future__ import annotations
 
@@ -126,6 +156,13 @@ def time_ms(fn, calls: int = 1, iters: int = 10):
     return device, host
 
 
+def _to(tree, dev):
+    """A tree of tensors moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # --------------------------------------------------------------- phases
 def phase_build() -> float:
     from repro_torch.kernels import build
@@ -140,9 +177,8 @@ def phase_build() -> float:
     return dt
 
 
-def _attn_inputs(B, S, dtype, gen):
+def _attn_inputs(B, S, dtype, gen, H=9, Kh=3, hd=64):
     import torch
-    H, Kh, hd = 9, 3, 64
     # the model's layout: (B, S, heads, hd) projections, passed transposed
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, S, Kh, hd), generator=gen, device="cuda").to(dtype)
@@ -150,9 +186,8 @@ def _attn_inputs(B, S, dtype, gen):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _decode_inputs(B, W, dtype, gen, L=1):
+def _decode_inputs(B, W, dtype, gen, L=1, H=9, Kh=3, hd=64):
     import torch
-    H, Kh, hd = 9, 3, 64
     q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
     # the model's cache layout (L, B, W, Kh, hd), read as permuted views
     k = torch.randn((L, B, W, Kh, hd), generator=gen, device="cuda").to(dtype)
@@ -286,14 +321,8 @@ def phase_reference() -> None:
     tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int64)
     worst = 0.0
     outs = {}
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        return tree.to(dev)
-
     for dev in ("cpu", "cuda"):
-        p = to(params, dev)
+        p = _to(params, dev)
         logits, caches = api.prefill_full_fn(
             p, {"tokens": torch.tensor(tokens, device=dev)})
         state = api.init_decode_state(2, 32, dev)
@@ -392,19 +421,33 @@ def phase_profile(api, params, eng) -> None:
     host wall clock. The full tables go to chiprun_out/profile.txt."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     B = eng.batch
     tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
     t = torch.full((B,), 900, dtype=torch.int32, device="cuda")
     prompt = torch.tensor(np.random.default_rng(1).integers(
         0, api.cfg.vocab_size, (B, 1024)), device="cuda")
-    work = {
+    profile_work({
         "decode step": (5, lambda: api.decode_fn(
             params, eng.state, {"token": tok, "t": t})),
         "prefill 8x1024": (2, lambda: api.prefill_full_fn(
             params, {"tokens": prompt})),
-    }
+    }, "profile.txt")
+
+
+# the port's own kernels, by the names of their CUDA functions
+PORT_KERNELS = {"attention": ("attn_kernel", "decode_partial",
+                              "decode_merge"), "ssd scan": ("ssd_kernel",)}
+
+
+def profile_work(work: dict, fname: str) -> None:
+    """Each ``name: (n, fn)`` of ``work`` run n times under torch.profiler
+    after one warm run: host wall per run against device busy, the port's
+    kernels' share, the top kernels. Full tables to ``fname`` in the
+    output directory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     report = []
     for name, (n, fn) in work.items():
         fn()
@@ -417,22 +460,24 @@ def phase_profile(api, params, eng) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / n
         by_name = {}
+        launches = 0
         for kname, ms in cuda_kernels(prof):
             by_name[kname] = by_name.get(kname, 0.0) + ms / n
+            launches += 1
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])
-        attn = sum(v for k, v in by_name.items()
-                   if "decode_partial" in k or "decode_merge" in k
-                   or "attn_kernel" in k)
+        ours = "; ".join(
+            f"{group} kernels {sum(v for k, v in by_name.items() if any(m in k for m in marks)):.3f} ms"  # noqa: E501
+            for group, marks in PORT_KERNELS.items())
         print(f"profile {name}: host wall {1e3 * wall:.3f} ms, device busy "
               f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%), "
-              f"attention kernels {attn:.3f} ms, {len(by_name)} kernel "
-              f"names; top: " + "; ".join(f"{k[:40]} {v:.3f}"
-                                          for k, v in top[:4]))
+              f"{launches / n:.0f} kernel launches, {ours}, "
+              f"{len(by_name)} kernel names; top: "
+              + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
         report.append(f"== {name}: wall {1e3 * wall:.4f} ms/iter, busy "
-                      f"{busy:.4f} ms/iter\n" + "\n".join(
-                          f"{v:10.4f} ms  {k}" for k, v in top))
-    with open(os.path.join(HERE, "chiprun_out", "profile.txt"), "w") as f:
+                      f"{busy:.4f} ms/iter, {launches / n:.0f} launches/iter\n"
+                      + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top))
+    with open(os.path.join(HERE, "chiprun_out", fname), "w") as f:
         f.write("\n\n".join(report) + "\n")
 
 
@@ -852,6 +897,446 @@ def phase_train_profile(loop, params, opt_state) -> None:
                                           row_limit=60) + "\n")
 
 
+# --------------------------------------------------------- hybrid phases
+HYBRID = "zamba2-7b"
+SCAN_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
+# the two admission algorithms at full depth in bf16 (PERF.md says why)
+CROSS_BF16_BOUND = 0.2
+CROSS_F32_BOUND = 1e-3
+
+
+def _scan_inputs(gen, B, NH, S, dtype, P=64, N=64):
+    """The model's layout at zamba2's widths: x a (B, NH, S, P) view of
+    (B, S, NH, P); B and C slices of one (B, S, 2N) tensor; a and dt
+    (B, NH, S) views of (B, S, NH) f32."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn((B, S, NH, P), generator=gen, device="cuda").to(dtype)
+    bc = (torch.randn((B, S, 2 * N), generator=gen, device="cuda")
+          * 0.5).to(dtype)
+    dt = F.softplus(torch.randn((B, S, NH), generator=gen, device="cuda"))
+    a = torch.exp(-F.softplus(torch.randn((B, S, NH), generator=gen,
+                                          device="cuda")))
+    return (x.transpose(1, 2), bc[..., :N], bc[..., N:], a.transpose(1, 2),
+            dt.transpose(1, 2))
+
+
+# zamba2-7b's shared attention block: 32 heads over 32 KV heads, hd 112
+SHARED = dict(H=32, Kh=32, hd=112)
+
+
+def phase_hybrid_parity():
+    """The hybrid path's kernels against their plain versions at its
+    shapes: mamba2_scan at zamba2-7b's full-width prefill (B=2, NH=112,
+    S=2048, P=N=64), at a ragged S and at one chunk; flash_attention and
+    flash_decode at the shared block's hd 112. Then each timed; returns
+    the timing rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import mamba2_scan as MS
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    err = {"mamba2_scan": 0.0, "fa112": 0.0, "fd112": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        tol = SCAN_TOL[name]
+        for B, NH, S in ((2, 112, 2048), (2, 112, 1000), (1, 112, 64)):
+            ins = _scan_inputs(gen, B, NH, S, dtype)
+            got = MS.mamba2_scan(*ins, out_dtype=torch.float32)
+            want = MS.mamba2_scan_plain(*ins, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            e = d.max().item()
+            ok = bool((d <= tol * (1 + want.abs())).all())
+            print(f"parity mamba2_scan {name} x, f32 y, B={B} NH={NH} S={S}"
+                  f" P=N=64: max_abs_err={e:.3e} (max |y| "
+                  f"{want.abs().max().item():.3e})")
+            if not ok or not torch.isfinite(got).all():
+                fail(f"mamba2_scan {name} B={B} S={S} err {e}")
+            if dtype == torch.bfloat16:
+                err["mamba2_scan"] = max(err["mamba2_scan"], e)
+            del ins, got, want, d
+        for B, S in ((2, 2048), (4, 200)):
+            q, k, v = _attn_inputs(B, S, dtype, gen, **SHARED)
+            got = FA.flash_attention(q, k, v, causal=True, sliding_window=4096)
+            want = FA.attention_ref(q, k, v, causal=True, sliding_window=4096)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            print(f"parity flash_attention hd=112 {name} B={B} S={S} H=Kh=32"
+                  f": max_abs_err={e:.3e}")
+            if not e <= TOL[name]:
+                fail(f"flash_attention hd=112 {name} B={B} S={S} err {e}")
+            if dtype == torch.bfloat16:
+                err["fa112"] = max(err["fa112"], e)
+            del q, k, v, got, want
+        for B, W in ((4, 256), (4, 4096)):
+            q, k, v, valid = _decode_inputs(B, W, dtype, gen, **SHARED)
+            kv = (k[0].permute(0, 2, 1, 3), v[0].permute(0, 2, 1, 3))
+            got = FD.flash_decode(q, *kv, valid)
+            want = FD.decode_ref(q, *kv, valid)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            print(f"parity flash_decode hd=112 {name} B={B} W={W} H=Kh=32: "
+                  f"max_abs_err={e:.3e}")
+            if not e <= TOL[name]:
+                fail(f"flash_decode hd=112 {name} B={B} W={W} err {e}")
+            if dtype == torch.bfloat16:
+                err["fd112"] = max(err["fd112"], e)
+    torch.cuda.empty_cache()
+
+    rows = []
+    # the scan at the full-width prefill, as the model calls it
+    B, NH, S, P, N, c = 2, 112, 2048, 64, 64, 256
+    ins = _scan_inputs(gen, B, NH, S, torch.bfloat16)
+    ms, host = time_ms(lambda: MS.mamba2_scan(*ins, out_dtype=torch.float32))
+    plain, _ = time_ms(lambda: MS.mamba2_scan_plain(
+        *ins, out_dtype=torch.float32), iters=3)
+    nbytes = (2 * B * NH * S * P + 4 * B * NH * S * P + 2 * 4 * B * NH * S
+              + 2 * 2 * B * S * N)
+    # the reference's 256-row chunks: C B^T, its mask, W (x dt), the
+    # incoming state's term and the state update
+    per_chunk = 2 * c * c * N + c * c + 2 * c * c * P + 4 * c * N * P
+    flops = B * NH * math.ceil(S / c) * per_chunk
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    rows.append({
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan.py:64",
+        "shape": f"B={B} NH={NH} S={S} P={P} N={N}, x bf16, y f32",
+        "max_abs_err": err["mamba2_scan"], "ms": ms, "host_ms": host,
+        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None})
+    del ins
+
+    # the shared block's prefill attention, hd 112
+    B, S, H, hd = 2, 2048, 32, 112
+    q, k, v = _attn_inputs(B, S, torch.bfloat16, gen, **SHARED)
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * H * hd)
+    ms, host = time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                                  sliding_window=4096))
+    plain, _ = time_ms(lambda: FA.attention_ref(
+        q, k, v, causal=True, sliding_window=4096), iters=3)
+    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "shape": f"B={B} H=Kh={H} S={S} hd={hd} bf16 causal (zamba2 shared)",
+        "max_abs_err": err["fa112"], "ms": ms, "host_ms": host,
+        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib})
+    del q, k, v
+
+    # the shared block's decode over the serve cell's 27 applications'
+    # caches (batch 4, window 256), each cold in L2 when it is read
+    B, W, L = 4, 256, 27
+    q, k, v, valid = _decode_inputs(B, W, torch.bfloat16, gen, L=L,
+                                    **SHARED)
+    valid[0] = 1
+    views = [(k[l].permute(0, 2, 1, 3), v[l].permute(0, 2, 1, 3))
+             for l in range(L)]
+    mask = (valid[:, None, None, :] > 0)
+    n_valid = int(valid.sum())
+    flops = 4 * H * hd * n_valid
+    nbytes = 2 * (2 * n_valid * H * hd + 2 * B * H * hd) + 4 * B * W
+
+    def cycle(fn):
+        return lambda: [fn(kk, vv) for kk, vv in views]
+
+    ms, host = time_ms(cycle(lambda kk, vv: FD.flash_decode(q, kk, vv,
+                                                           valid)), calls=L)
+    plain, _ = time_ms(cycle(lambda kk, vv: FD.decode_ref(q, kk, vv, valid)),
+                       calls=L, iters=3)
+    q4 = q[:, :, None, :]
+    lib, _ = time_ms(cycle(lambda kk, vv: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask)), calls=L)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    rows.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:63",
+        "shape": f"B={B} H=Kh={H} W={W} hd={hd} bf16 (zamba2 shared), "
+                 f"{n_valid}/{B * W} slots valid",
+        "max_abs_err": err["fd112"], "ms": ms, "host_ms": host,
+        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib})
+    del q, k, v, views
+    torch.cuda.empty_cache()
+    for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        print(f"timing {r['name']} ({r['shape']}), device ms per call: "
+              f"kernel {r['ms']:.4f} (host-timed {r['host_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f}, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows
+
+
+def phase_hybrid_reference() -> None:
+    """Reduced zamba2 in f32: the kernels on the card against the plain
+    versions on the CPU, from the same parameters. Prefill logits and the
+    length-masked admission pass's logits within 1e-4; the same requests
+    through ServeEngine give identical token streams and serve.*
+    counters."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(HYBRID).reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator("cpu").manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int64)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 1, 12, 40, 3, 17, 8)]
+    outs, served = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        tok = torch.tensor(tokens, device=dev)
+        logits, _ = api.prefill_full_fn(p, {"tokens": tok})
+        nxt, _ = api.prefill_state_fn(p, tok, [40, 23], window=48)
+        outs[dev] = (logits, nxt)
+        eng = ServeEngine(api, p, batch=4, window=32)
+        reqs = [Request(i, pr, max_new=5) for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        served[dev] = ([r.out for r in reqs], eng.epoch,
+                       eng.metrics.snapshot()["counters"])
+    worst = 0.0
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        if not torch.isfinite(b).all():
+            fail("hybrid reference: non-finite logits on the card")
+        worst = max(worst, (a - b.cpu()).abs().max().item())
+    print(f"hybrid reference: reduced {HYBRID} f32, card vs CPU plain: "
+          f"prefill and admission logits max_abs_err={worst:.3e}; engine "
+          f"streams equal: {served['cpu'] == served['cuda']} "
+          f"({served['cuda'][2]})")
+    if not worst <= 1e-4:
+        fail(f"hybrid reference: card and CPU disagree by {worst}")
+    if served["cpu"] != served["cuda"]:
+        fail(f"hybrid reference: the engine served {served['cuda']} on the "
+             f"card, {served['cpu']} on the CPU")
+
+
+def cross_check(api, params, lengths, seed: int) -> float:
+    """The two admission algorithms on one padded prompt group: the
+    chunked scan's (``prefill_full_fn``) logits at each prompt's len-1
+    against the recurrence's (``prefill_state_fn``) next-token logits.
+    Returns their relative L2 distance."""
+    import numpy as np
+    import torch
+    S = max(lengths)
+    tokens = torch.tensor(np.random.default_rng(seed).integers(
+        0, api.cfg.vocab_size, (len(lengths), S)), device="cuda")
+    full, _ = api.prefill_full_fn(params, {"tokens": tokens})
+    chunked = full[torch.arange(len(lengths), device="cuda"),
+                   torch.tensor(lengths, device="cuda") - 1].float()
+    del full
+    nxt, _ = api.prefill_state_fn(params, tokens, lengths, window=S)
+    if not (torch.isfinite(chunked).all() and torch.isfinite(nxt).all()):
+        fail("hybrid cross-check: non-finite logits")
+    return ((chunked - nxt).norm() / nxt.norm()).item()
+
+
+def phase_hybrid_cross_f32() -> float:
+    """zamba2-7b at full width, depth 3 (one group), f32: the chunked
+    scan against the recurrence within 1e-3 relative L2."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api, get_config
+
+    cfg = dataclasses.replace(get_config(HYBRID), n_layers=3,
+                              dtype="float32")
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator("cuda").manual_seed(1), "cuda")
+    t0 = time.perf_counter()
+    rel = cross_check(api, params, [512, 301], seed=3)
+    torch.cuda.synchronize()
+    print(f"hybrid cross-check: {HYBRID} full width, depth 3, f32, lengths "
+          f"[512, 301]: prefill_full_fn vs prefill_state_fn next-token "
+          f"logits relative L2 {rel:.3e} (bound {CROSS_F32_BOUND}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not rel <= CROSS_F32_BOUND:
+        fail(f"hybrid cross-check f32: relative L2 {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return rel
+
+
+def phase_hybrid_prefill():
+    """zamba2-7b at full width and depth, bf16, random weights from a
+    seeded generator: the prefill step (``prefill_fn``) on 2 x 2048
+    tokens, three times, with the launch counters zeroed just before;
+    then the two admission algorithms at full depth. Returns (api,
+    params, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.models.transformer import n_shared_apps
+    from repro_torch.utils import tree_flatten
+
+    cfg = get_config(HYBRID)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_flatten(params)[1])
+    # the config's count leaves out the final norm and counts each Mamba2
+    # layer's norms (ln1, the gated norm's d_inner weights) as 2 d_model
+    n_norms = cfg.n_layers * (1 + cfg.ssm_expand - 2) * cfg.d_model \
+        + cfg.d_model
+    print(f"hybrid: {HYBRID} full width ({cfg.n_layers} Mamba2 layers, "
+          f"d_model {cfg.d_model}, {n_shared_apps(cfg)} shared-block "
+          f"applications, hd {cfg.hd}), {n_params} parameters "
+          f"(param_count() {cfg.param_count()} + {n_norms} norm weights) in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    if n_params != cfg.param_count() + n_norms:
+        fail(f"hybrid: {n_params} parameters, want "
+             f"{cfg.param_count() + n_norms}")
+    B, S, runs = 2, 2048, 3
+    tokens = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    torch.cuda.synchronize()
+    MS.mamba2_scan.launches = 0
+    FA.flash_attention.launches = 0
+    FD.flash_decode.launches = 0
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        last, caches = api.prefill_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {"mamba2_scan": MS.mamba2_scan.launches,
+                "flash_attention": FA.flash_attention.launches,
+                "flash_decode": FD.flash_decode.launches}
+    G = n_shared_apps(cfg)
+    print(f"hybrid prefill: {B}x{S} tokens, bf16, {runs} runs: wall "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (best "
+          f"{B * S / min(walls[1:]):.1f} tok/s); launches {launches}")
+    if launches != {"mamba2_scan": cfg.n_layers * runs,
+                    "flash_attention": G * runs, "flash_decode": 0}:
+        fail(f"hybrid prefill: launches {launches}, want "
+             f"{cfg.n_layers} mamba2_scan and {G} flash_attention a forward")
+    if (tuple(last.shape) != (B, cfg.vocab_size)
+            or not torch.isfinite(last.float()).all()
+            or tuple(caches["layers"]["k"].shape)
+            != (G, B, S, cfg.n_kv_heads, cfg.hd)):
+        fail(f"hybrid prefill: logits {tuple(last.shape)}, caches "
+             f"{tuple(caches['layers']['k'].shape)}")
+    del last, caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rel = cross_check(api, params, [256, 141], seed=4)
+    print(f"hybrid cross-check: {HYBRID} full width and depth, bf16, "
+          f"lengths [256, 141]: prefill_full_fn vs prefill_state_fn "
+          f"next-token logits relative L2 {rel:.3e} (bound "
+          f"{CROSS_BF16_BOUND}) in {time.perf_counter() - t0:.2f} s")
+    if not rel <= CROSS_BF16_BOUND:
+        fail(f"hybrid cross-check bf16: relative L2 {rel}")
+    torch.cuda.empty_cache()
+    return api, params, launches
+
+
+def phase_hybrid_serve(api, params) -> dict:
+    """zamba2-7b at full width through ServeEngine: batch 4, window 256,
+    8 prompts of 4..200 tokens (recurrent bulk admission in several
+    length and group buckets, slot reuse) plus one of 300 (past the
+    window: the sequential path and its fresh-slot reset), 16 new tokens
+    each."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = api.cfg
+    eng = ServeEngine(api, params, batch=4, window=256)
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(4, 201, 8)] + [300]
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new=16)
+            for i, n in enumerate(lengths)]
+    for r in reqs:
+        eng.submit(r)
+    spent = {"rec": 0.0, "sequential": 0.0}
+
+    def timed(fn, key):
+        def run(*args):
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+        return run
+
+    eng._admit_bulk_recurrent = timed(eng._admit_bulk_recurrent, "rec")
+    eng._admit_sequential = timed(eng._admit_sequential, "sequential")
+    torch.cuda.synchronize()
+    MS.mamba2_scan.launches = 0
+    FA.flash_attention.launches = 0
+    FD.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mamba2_scan": MS.mamba2_scan.launches,
+                "flash_attention": FA.flash_attention.launches,
+                "flash_decode": FD.flash_decode.launches}
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        fail("hybrid serve: not every request finished")
+    if not all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.out):
+        fail("hybrid serve: a token outside the vocabulary")
+    if not launches["flash_decode"] > 0:
+        fail(f"hybrid serve: flash_decode was never launched: {launches}")
+    snap = eng.metrics.snapshot()
+    counters = snap["counters"]
+    if (counters.get("serve.admit.rec") != 8
+            or counters.get("serve.admit.sequential") != 1):
+        fail(f"hybrid serve: admissions {counters}")
+    dec = snap["hists"]["serve.decode.token_seconds"]
+    decoded = sum(len(r.out) - 1 for r in reqs)
+    rec_toks = sum(n for n in lengths if n <= 256)
+    seq_toks = sum(lengths) - rec_toks
+    print(f"hybrid serve: {HYBRID} full width bf16, batch 4, window 256: "
+          f"{len(reqs)} requests (prompts {lengths}, {sum(lengths)} prompt "
+          f"tokens, {sum(len(r.out) for r in reqs)} generated) in "
+          f"{wall:.3f} s: recurrent bulk admission {spent['rec']:.3f} s "
+          f"({rec_toks / spent['rec']:.1f} prompt tok/s), sequential "
+          f"admission {spent['sequential']:.3f} s ({seq_toks / spent['sequential']:.1f}"
+          f" tok/s), {dec['count']} decode steps {dec['total']:.3f} s")
+    print(f"hybrid serve: decode {decoded / dec['total']:.1f} tok/s "
+          f"({1e3 * dec['total'] / dec['count']:.3f} ms/step, batch 4 incl. "
+          f"inactive slots); serve counters "
+          f"{ {k: v for k, v in counters.items() if k.startswith('serve.')} }"
+          f"; epochs {eng.epoch}; launches {launches}")
+    B = eng.batch
+    tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    t = torch.full((B,), 200, dtype=torch.int32, device="cuda")
+    prompt = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 2048)), device="cuda")
+    profile_work({
+        "hybrid decode step": (3, lambda: api.decode_fn(
+            params, eng.state, {"token": tok, "t": t})),
+        "hybrid prefill 2x2048": (1, lambda: api.prefill_fn(
+            params, {"tokens": prompt})),
+    }, "hybrid_profile.txt")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -867,13 +1352,20 @@ def main() -> int:
     phase_build()
     rows = phase_parity()
     rows += phase_train_parity()
+    rows += phase_hybrid_parity()
     phase_reference()
     phase_train_reference()
+    phase_hybrid_reference()
+    phase_hybrid_cross_f32()
     by_path = {"serve": phase_serve()}
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"] = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    api, params, by_path["hybrid_prefill"] = phase_hybrid_prefill()
+    by_path["hybrid_serve"] = phase_hybrid_serve(api, params)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}

@@ -67,7 +67,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float sm_scale, int causal, int window) {
   constexpr int QST = HD + 1;     // padded rows of Qs / Ks
   constexpr int PST = BK + 1;     // padded rows of Ps
-  constexpr int DJ = HD / 8;      // output columns per thread
+  constexpr int DJ = HD / 8;      // output columns per thread (HD % 8 == 0)
   extern __shared__ float smem[];
   float* Qs = smem;               // [BQ][HD + 1]
   float* Ks = Qs + BQ * QST;      // [BK][HD + 1]
@@ -243,6 +243,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
       return launch_hd<T, 32>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     case 64:
       return launch_hd<T, 64>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
+    case 112:   // zamba2-7b's shared attention (3584 / 32 heads)
+      return launch_hd<T, 112>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, out, lse, B, H, Kh, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, stream);
     default:

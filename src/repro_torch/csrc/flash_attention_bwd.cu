@@ -410,6 +410,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       return launch_hd<T, 32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
     case 64:
       return launch_hd<T, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    case 112:
+      return launch_hd<T, 112>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
     default:

@@ -232,6 +232,7 @@ int launch(Args a, int B, int H, int hd, cudaStream_t stream) {
     case 16: return launch_hd<T, 16>(a, B, stream);
     case 32: return launch_hd<T, 32>(a, B, stream);
     case 64: return launch_hd<T, 64>(a, B, stream);
+    case 112: return launch_hd<T, 112>(a, B, stream);   // zamba2-7b
     case 128: return launch_hd<T, 128>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -7,9 +7,14 @@ initialise parameters with the reference and move them across as numpy;
 the reference's tree layout for comparison.
 The port keeps the reference's parameter tree and its ``(in, out)``
 linear layout (``x @ w``), so the mapping is name for name with no
-transposes: ``embed``, ``final_norm`` (``lm_head`` when untied) and
-``blocks/{ln1, ln2, attn/{wq, wk, wv, wo[, bq, bk, bv]},
-mlp/{gate, up, down}}`` stacked on the layer dim.
+transposes, for every ported family: dense ``blocks/{ln1, ln2,
+attn/{wq, wk, wv, wo[, bq, bk, bv]}, mlp/{gate, up, down}}`` stacked on
+the layer dim; plain ssm ``blocks/{ln1, ssm/{in_proj, conv_w, A_log, D,
+dt_bias, out_proj, norm_w}}`` stacked (L, ...); hybrid the same blocks
+stacked (G, k, ...) plus ``shared/{ln1, ln2, attn, mlp}``; and
+``embed``, ``final_norm`` (``lm_head`` when untied). Each leaf takes the
+dtype of the port's ``param_spec`` (``cfg.dtype``; ``A_log``, ``D`` and
+``dt_bias`` stay f32, as the reference keeps them).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .models import transformer
 from .optim import OptState
 from .utils import tree_map
 
@@ -27,45 +33,26 @@ from .utils import tree_map
 def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """``tree``: the reference parameter tree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``). Returns the port's
-    parameter dict on ``device`` in ``cfg.dtype``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    dt = getattr(torch, cfg.dtype)
-
-    def t(x, shape):
-        a = np.asarray(x, dtype=np.float32)
-        if a.shape != shape:
-            raise ValueError(f"parameter shape {a.shape} != {shape}")
-        return torch.tensor(a, dtype=dt, device=device)
-
-    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    qd, kd = cfg.q_dim, cfg.kv_dim
-    b = tree["blocks"]
-    attn = {"wq": t(b["attn"]["wq"], (L, D, qd)),
-            "wk": t(b["attn"]["wk"], (L, D, kd)),
-            "wv": t(b["attn"]["wv"], (L, D, kd)),
-            "wo": t(b["attn"]["wo"], (L, qd, D))}
-    if cfg.qkv_bias:
-        attn.update(bq=t(b["attn"]["bq"], (L, qd)),
-                    bk=t(b["attn"]["bk"], (L, kd)),
-                    bv=t(b["attn"]["bv"], (L, kd)))
-    out = {"embed": t(tree["embed"], (V, D)),
-           "final_norm": t(tree["final_norm"], (D,)),
-           "blocks": {"ln1": t(b["ln1"], (L, D)), "ln2": t(b["ln2"], (L, D)),
-                      "attn": attn,
-                      "mlp": {"gate": t(b["mlp"]["gate"], (L, D, F)),
-                              "up": t(b["mlp"]["up"], (L, D, F)),
-                              "down": t(b["mlp"]["down"], (L, F, D))}}}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = t(tree["lm_head"], (V, D))
-    return out
+    parameter dict on ``device``, shaped and typed as ``param_spec``."""
+    def walk(spec, node, path):
+        if isinstance(spec, dict):
+            keys = sorted(node) if isinstance(node, dict) else node
+            if keys != sorted(spec):
+                raise ValueError(f"parameter tree at {path or '/'}: keys "
+                                 f"{keys} != {sorted(spec)}")
+            return {k: walk(spec[k], node[k], f"{path}/{k}") for k in spec}
+        a = np.asarray(node, dtype=np.float32)
+        if a.shape != tuple(spec.shape):
+            raise ValueError(f"parameter {path}: shape {a.shape} != "
+                             f"{tuple(spec.shape)}")
+        return torch.tensor(a, dtype=spec.dtype, device=device)
+    return walk(transformer.param_spec(cfg), tree, "")
 
 
 def params_to_numpy(params: Dict, cfg: ModelConfig) -> Dict:
     """The port's parameters as the reference's tree of numpy arrays
     (f32; the same keys and shapes as ``params_from_jax`` takes)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    transformer.param_spec(cfg)          # raises for an unported family
     return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
 
 

@@ -24,7 +24,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_GROUP = 16
 
 

@@ -105,11 +105,13 @@ def init_cache(batch: int, window: int, n_kv_heads: int, head_dim: int,
 def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
                      cache: Dict, *, n_heads: int, n_kv_heads: int,
                      head_dim: int, rope_theta: float,
-                     sliding_window: Optional[int] = None
+                     sliding_window: Optional[int] = None,
+                     live: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. x: (B,1,D); t: (B,) absolute position of the new
     token. Writes slot t (full cache) or t % W (ring buffer) in place and
-    attends over all valid slots.
+    attends over all valid slots. ``live`` (optional, (B,) bool): a row
+    where it is False writes nothing (its cache stays as it was).
 
     A write to slot t >= W of a full cache is DROPPED, as JAX drops an
     out-of-range ``.at[].set`` (prompt + new tokens past the window, and
@@ -124,6 +126,8 @@ def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
     k_new = apply_rope(k_new, pos, rope_theta)
     slot = t % W if sliding_window is not None else t
     inside = slot < W
+    if live is not None:
+        inside = inside & live
     bidx = torch.arange(B, device=x.device)
     idx = torch.where(inside, slot, torch.zeros_like(slot)).long()
     keep = inside[:, None, None]

@@ -3,7 +3,9 @@
 Port of ``repro/models/registry.py``. ``ModelAPI`` hides family
 differences behind init / loss / prefill / decode; the pipeline-stage
 functions wait for ROADMAP A.9 and the input specs for the dry-run
-tooling (A.11). Only the families the port has (dense) are registered.
+tooling (A.11). Only configs of the families the port has (dense,
+hybrid) are registered; ``reduced(family="ssm", hybrid_attn_every=0)``
+of the hybrid gives the plain-ssm family.
 """
 from __future__ import annotations
 
@@ -79,9 +81,35 @@ class ModelAPI:
 
     def decode_fn(self, params, state: Dict, batch: Dict):
         """One decode step; updates ``state`` in place and returns
-        (logits, state)."""
+        (logits, state). An optional ``batch["live"]`` (B,) bool freezes
+        the rows where it is False."""
         return transformer.decode_step(self.cfg, params, state,
-                                       batch["token"], batch["t"])
+                                       batch["token"], batch["t"],
+                                       batch.get("live"))
+
+    def prefill_state_fn(self, params, tokens: torch.Tensor, lengths, *,
+                         window: int):
+        """Bulk prefill for RECURRENT decode states (ssm/hybrid): one
+        length-masked decode pass over a padded (G, S_bucket) prompt
+        group. A row's state (its SSM carries, KV rows and ``pos``)
+        freezes once ``t >= lengths[g]``, so the final state equals the
+        one token-by-token admission produces, leaf for leaf. Returns
+        (next_logits (G, V) f32 at each request's own len-1, decode
+        state for a G-slot batch)."""
+        G, Sb = tokens.shape
+        dev = tokens.device
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        state = self.init_decode_state(G, window, dev)
+        nxt = torch.zeros((G, self.cfg.vocab_size), dtype=torch.float32,
+                          device=dev)
+        for t in range(Sb):
+            pos = torch.full((G,), t, dtype=torch.int32, device=dev)
+            logits, state = self.decode_fn(
+                params, state, {"token": tokens[:, t], "t": pos,
+                                "live": pos < lengths})
+            nxt = torch.where((pos == lengths - 1)[:, None], logits.float(),
+                              nxt)
+        return nxt, state
 
     def init_decode_state(self, batch: int, window: int, device="cuda"):
         return transformer.init_decode_state(self.cfg, batch, window,
@@ -133,4 +161,4 @@ def get_api(name_or_cfg) -> ModelAPI:
 
 
 def _load_all():
-    from ..configs import smollm_135m  # noqa: F401  (registers the config)
+    from ..configs import smollm_135m, zamba2_7b  # noqa: F401  (register)

@@ -24,8 +24,14 @@ prompts; causality keeps every position below a request's true length
 unaffected by the pad tail, so the engine reads each request's next
 token at its own ``len - 1`` and splices the bucket's KV into the slot's
 cache region with only the first ``len`` positions marked valid. Prompts
-longer than the cache window take the token-by-token path. (The
-recurrent families' bulk path arrives with their slice.)
+longer than the cache window take the token-by-token path.
+
+Families whose decode state is a **recurrence** (plain ssm, hybrid)
+cannot splice a full-logits prefill's caches: their state is the carry
+after the prompt, not a per-position buffer. They get their own bulk
+path (``ModelAPI.prefill_state_fn``): one length-masked decode pass over
+the padded group (a row's state freezes at its true length), spliced
+into the admitted slots with one indexed write per state leaf.
 
 The port updates the decode cache IN PLACE (the decode step writes its
 slot; the splice writes the admitted slots' regions), where the JAX
@@ -88,9 +94,16 @@ class ServeEngine:
         # JAX engine's lowerings), so the name means the same in both.
         self.metrics = MetricsRegistry()
         self._prefill_shapes = set()
+        self._prefill_state_shapes = set()
         # per-leaf batch dim: splices a slot without touching the others
         self._bdim = api.decode_state_bdims(batch, window)
-        self._kv_window = self.state["layers"]["k"].shape[2]
+        # KV bulk admission (the dense family: its decode state is the
+        # stacked KV cache the prefill's caches splice into); recurrent
+        # families take the length-masked decode-pass bulk path
+        self._bulk = self.cfg.family == "dense"
+        self._kv_window = (self.state["layers"]["k"].shape[2] if self._bulk
+                           else 0)
+        self._bulk_rec = self.cfg.family in ("ssm", "hybrid")
 
     @property
     def prefill_traces(self) -> int:
@@ -142,27 +155,34 @@ class ServeEngine:
     def _admit(self) -> None:
         """Phase-boundary refill: fill ALL free slots from the queue at
         this boundary (JOIN = eager insertion). Groups of one length
-        bucket run one padded prefill each and splice their caches in;
-        prompts beyond the window take token-by-token admission."""
+        bucket run one padded prefill (KV families) or one length-masked
+        decode pass (recurrent families) each and splice their states
+        in; prompts beyond the window take token-by-token admission."""
         admits: List[Tuple[int, Request]] = []
         for slot in range(self.batch):
             if self.slot_req[slot] is None and self.queue:
                 admits.append((slot, self.queue.pop(0)))
         groups: Dict[Tuple[str, int], List[Tuple[int, Request]]] = {}
         for slot, req in admits:
+            # clamp to the window so a non-pow2 window keeps its largest
+            # admissible prompts on the bulk path
             L = len(req.prompt)
-            if L <= self._kv_window:
-                # clamp to the window so a non-pow2 window keeps its
-                # largest admissible prompts on the bulk path
+            if self._bulk and L <= self._kv_window:
                 bucket = min(self._bucket_len(L), self._kv_window)
                 groups.setdefault(("kv", bucket), []).append((slot, req))
+            elif self._bulk_rec and L <= self.window:
+                bucket = min(self._bucket_len(L), self.window)
+                groups.setdefault(("rec", bucket), []).append((slot, req))
             else:
                 self.metrics.inc("serve.admit.sequential")
                 self._admit_sequential(slot, req)
         for (kind, bucket), group in sorted(groups.items()):
             self.metrics.inc(f"serve.admit.{kind}", len(group))
             self.metrics.observe("serve.admit.group_size", len(group))
-            self._admit_bulk(group, bucket)
+            if kind == "kv":
+                self._admit_bulk(group, bucket)
+            else:
+                self._admit_bulk_recurrent(group, bucket)
 
     def _admit_bulk(self, group: List[Tuple[int, "Request"]],
                     bucket: int) -> None:
@@ -212,14 +232,53 @@ class ServeEngine:
             valid, pos[None], torch.full_like(pos[None], -1)).expand(
                 st["pos"].shape[0], G, bucket)
 
+    def _admit_bulk_recurrent(self, group: List[Tuple[int, "Request"]],
+                              bucket: int) -> None:
+        """Bulk admission for recurrent-state families: ONE length-masked
+        decode pass over the padded group (``prefill_state_fn``) gives
+        every request's final state and its next-token logits at its own
+        ``len - 1``; the states splice into the admitted slots (running
+        slots untouched). The group pads to the pow2 group bucket (pad
+        rows run length-1 dummies and are sliced away)."""
+        G = len(group)
+        Gp = self._bucket_group(G)
+        lengths = [len(r.prompt) for _, r in group]
+        tokens = np.zeros((Gp, bucket), np.int32)
+        for g, (_, r) in enumerate(group):
+            tokens[g, :lengths[g]] = r.prompt
+        pad_lens = np.ones((Gp,), np.int32)
+        pad_lens[:G] = lengths
+        if tokens.shape not in self._prefill_state_shapes:
+            self._prefill_state_shapes.add(tokens.shape)
+            self.metrics.inc("serve.prefill_state.traces")
+        logits, gstate = self.api.prefill_state_fn(
+            self.params, self._to_device(tokens), self._to_device(pad_lens),
+            window=self.window)
+        self._splice_state_group(gstate, [s for s, _ in group])
+        nxt = torch.argmax(logits[:G], dim=-1).cpu().numpy()
+        for g, (slot, req) in enumerate(group):
+            self._occupy(slot, req, int(nxt[g]), lengths[g])
+
+    def _splice_state_group(self, gstate, slots: List[int]) -> None:
+        """Write a group-batched decode state (its batch = the group, pad
+        rows after it) into the live state's admitted slots, in place,
+        one indexed write per leaf along its batch dim."""
+        sl = torch.tensor(slots, device=self.device)
+
+        def f(o, n, d):
+            o.index_copy_(d, sl, n.narrow(d, 0, len(slots)).to(o.dtype))
+        _tree_map(f, self.state, gstate, self._bdim)
+
     def _admit_sequential(self, slot: int, req: "Request") -> None:
-        """Admission for prompts beyond the cache window: prefill via
-        decode steps over the whole batch (the other slots decode token
-        0 at their positions, as in the reference), then keep only this
-        slot's new state."""
+        """Admission for prompts beyond the cache window (and for every
+        prompt when bulk admission is off): prefill via decode steps
+        over the whole batch (the other slots decode token 0 at their
+        positions, as in the reference), then keep only this slot's new
+        state."""
         old_state = self.state
-        # a REUSED slot still holds the previous request's stale KV pos
-        # rows: reset the slot to a fresh init first
+        # a REUSED slot still holds the previous request's state: a
+        # recurrent carry or stale KV pos rows would leak into this
+        # prefill, so reset the slot to a fresh init first
         self.state = self._splice_slot(
             old_state,
             self.api.init_decode_state(self.batch, self.window, self.device),

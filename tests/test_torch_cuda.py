@@ -12,6 +12,8 @@ They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
 Tolerances: a kernel against its plain version, bf16 2e-2 and f32 1e-4
 (sums in another order; the backward's relative to max(1, max|ref|));
+the SSD scan the reference kernel test's 3e-2 and 1e-3 (relative and
+absolute: its cumulative log-decay makes its f32 sums less exact);
 the bucket combine bitwise; the f32 model on the card against the CPU,
 1e-4, and its gradients 1e-4 of each leaf's largest value; a train
 step's parameters 1e-4 (Adam's first step divides each gradient by its
@@ -29,6 +31,7 @@ from repro_torch.data import make_batch
 from repro_torch.kernels import bucket_combine as BC
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import mamba2_scan as MS
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_api, get_config
@@ -76,6 +79,8 @@ def _to(tree, device):
     (1, 2, 1, 130, 128, None, True),    # hd 128: over 48 KB of smem
     (2, 16, 1, 65, 64, None, True),     # one KV head for 16 heads
     (1, 6, 2, 70, 64, None, False),     # not causal
+    (2, 32, 32, 70, 112, None, True),   # zamba2's shared block, hd 112
+    (1, 32, 32, 200, 112, 64, True),    # hd 112 with a window
 ])
 def test_flash_attention_matches_plain(B, H, Kh, S, hd, win, causal, dtype):
     gen = torch.Generator("cuda").manual_seed(S)
@@ -116,6 +121,8 @@ def _cache_view(gen, B, W, Kh, hd, dtype, aligned):
     (8, 9, 3, 1024, 64, True),          # the served shape
     (2, 9, 3, 100, 64, False),
     (2, 4, 2, 65, 16, False),
+    (4, 32, 32, 256, 112, True),        # zamba2's shared block, hd 112
+    (2, 32, 32, 70, 112, False),
 ])
 def test_flash_decode_matches_plain(B, H, Kh, W, hd, aligned, dtype):
     gen = torch.Generator("cuda").manual_seed(W)
@@ -212,6 +219,153 @@ def test_launch_serve_cli_on_card(capsys):
     assert "served 5/5 requests" in capsys.readouterr().out
 
 
+# ------------------------------------------------------ SSM and hybrid
+SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+
+
+def _scan_inputs(gen, B, NH, S, P, N, dtype):
+    """The model's layout: x a (B, NH, S, P) view of (B, S, NH, P), B
+    and C slices of one wider (B, S, 2N + 8) tensor, a and dt (B, NH, S)
+    views of (B, S, NH) f32."""
+    x = _randn(gen, (B, S, NH, P), dtype).transpose(1, 2)
+    bc = (_randn(gen, (B, S, 2 * N + 8), dtype) * 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, NH), generator=gen, device="cuda"))
+    a = torch.exp(-torch.nn.functional.softplus(
+        torch.randn((B, S, NH), generator=gen, device="cuda")))
+    return (x, bc[..., 8:8 + N], bc[..., 8 + N:], a.transpose(1, 2),
+            dt.transpose(1, 2))
+
+
+@pytest.mark.parametrize("out", ["same", "f32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,NH,S,P,N", [
+    (2, 2, 256, 64, 16), (1, 4, 512, 32, 64), (2, 1, 128, 64, 64),
+    (1, 3, 1, 16, 16),                  # one row
+    (2, 5, 100, 16, 16),                # ragged: one partial chunk
+    (1, 8, 1000, 64, 64),               # ragged: 15 chunks + 40 rows
+])
+def test_mamba2_scan_matches_plain(B, NH, S, P, N, dtype, out):
+    gen = torch.Generator("cuda").manual_seed(S + P)
+    ins = _scan_inputs(gen, B, NH, S, P, N, dtype)
+    out_dtype = torch.float32 if out == "f32" else dtype
+    n = MS.mamba2_scan.launches
+    got = MS.mamba2_scan(*ins, out_dtype=out_dtype)
+    assert MS.mamba2_scan.launches == n + 1
+    assert got.shape == (B, NH, S, P) and got.dtype == out_dtype
+    want = MS.mamba2_scan_plain(*ins, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # contiguous inputs: other strides, the same arithmetic; and a second
+    # run: no atomics, so bitwise the same
+    again = MS.mamba2_scan(*(t.contiguous() for t in ins),
+                           out_dtype=out_dtype)
+    assert torch.equal(again, got)
+
+
+def test_mamba2_scan_ragged_tail_reads_nothing_past_s():
+    """A ragged S cut from a longer sequence: the rows past S (which
+    would change every later output) are never read."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    full = _scan_inputs(gen, 2, 4, 300, 64, 64, torch.bfloat16)
+    x, Bm, Cm, a, dt = full
+    cut = (x[:, :, :130], Bm[:, :130], Cm[:, :130], a[..., :130],
+           dt[..., :130])
+    got = MS.mamba2_scan(*cut, out_dtype=torch.float32)
+    want = MS.mamba2_scan(*(t.contiguous() for t in cut),
+                          out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    head = MS.mamba2_scan(*full, out_dtype=torch.float32)[:, :, :130]
+    torch.testing.assert_close(head, got, rtol=1e-5, atol=1e-5)
+
+
+def test_mamba2_scan_refuses_what_it_cannot_take():
+    gen = torch.Generator("cuda").manual_seed(8)
+    x, Bm, Cm, a, dt = _scan_inputs(gen, 1, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MS.mamba2_scan(x.requires_grad_(True), Bm, Cm, a, dt)
+    x = x.detach()
+    with pytest.raises(ValueError, match="shapes"):
+        MS.mamba2_scan(x[..., :48], Bm, Cm, a, dt)
+    with pytest.raises(TypeError, match="dtypes"):
+        MS.mamba2_scan(x, Bm, Cm, a.double(), dt)
+    with torch.no_grad():                  # no gradient wanted: runs
+        MS.mamba2_scan(x.requires_grad_(True), Bm, Cm, a, dt)
+
+
+HYBRID = {"zamba2": {}, "ssm": {"family": "ssm", "hybrid_attn_every": 0}}
+
+
+@pytest.mark.parametrize("variant", sorted(HYBRID))
+def test_hybrid_model_on_card_matches_cpu(variant):
+    """Reduced zamba2 (and its plain-ssm family) in f32: prefill logits
+    and caches, 12 decode steps through a wrapping ring buffer, and the
+    length-masked admission pass's logits and state."""
+    cfg = get_config("zamba2-7b").reduced(**HYBRID[variant])
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        n = MS.mamba2_scan.launches
+        logits, caches = api.prefill_full_fn(p, {"tokens": tokens.to(dev)})
+        assert (MS.mamba2_scan.launches - n) == (cfg.n_layers if dev == "cuda"
+                                                 else 0)
+        got = [logits] + (tree_flatten(caches)[1] if caches["layers"]
+                          else [])
+        state = api.init_decode_state(2, 8, dev)
+        for s in range(12):
+            t = torch.tensor([s, s + 3], dtype=torch.int32, device=dev)
+            lg, state = api.decode_fn(p, state, {"token": tokens[:, s]
+                                                 .to(dev), "t": t})
+            got.append(lg)
+        nxt, pstate = api.prefill_state_fn(p, tokens.to(dev), [40, 23],
+                                           window=48)
+        outs[dev] = (got + tree_flatten(state)[1] + [nxt]
+                     + tree_flatten(pstate)[1])
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert b.is_cuda and torch.isfinite(b.float()).all()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_engine_on_card_serves_what_the_cpu_serves():
+    """Recurrent bulk groups, a prompt past the window and slot reuse:
+    the same tokens and epochs on both devices; the card's run launches
+    flash_decode, the CPU's nothing."""
+    cfg = get_config("zamba2-7b").reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 1, 12, 40, 3, 17, 8)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(api, _to(params, dev), batch=4, window=32)
+        reqs = [Request(i, p, max_new=5) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = FD.flash_decode.launches
+        eng.run_until_drained()
+        runs[dev] = ([r.out for r in reqs], eng.epoch,
+                     FD.flash_decode.launches - before,
+                     eng.metrics.snapshot()["counters"])
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    assert runs["cuda"][3] == runs["cpu"][3]
+    assert runs["cpu"][2] == 0 and runs["cuda"][2] > 0
+
+
+def test_launch_serve_cli_hybrid_on_card(capsys):
+    rc = launch_serve.main(["--arch", "zamba2-7b", "--reduced",
+                            "--requests", "5", "--batch", "2",
+                            "--window", "16", "--prompt-len", "20",
+                            "--max-new", "3"])
+    assert rc == 0
+    assert "served 5/5 requests" in capsys.readouterr().out
+
+
 # ------------------------------------------------------------ training
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("B,H,Kh,S,hd,win", [
@@ -222,6 +376,7 @@ def test_launch_serve_cli_on_card(capsys):
     (1, 4, 1, 130, 128, None),          # hd 128, g = 4
     (2, 4, 4, 65, 16, None),            # hd 16, no grouping
     (1, 16, 2, 90, 32, 33),             # g = 8
+    (1, 32, 32, 130, 112, None),        # hd 112 (zamba2's shared block)
 ])
 def test_flash_attention_backward_matches_plain(B, H, Kh, S, hd, win,
                                                 dtype):

@@ -1,7 +1,9 @@
 """The port stands alone: ``repro_torch`` imports with ``jax`` and
 ``repro`` blocked, and no file of it (nor ``chip_smoke.py``) imports
 either. The module list covers every subpackage: serving, kernels,
-optim, data, collective_exec, train, checkpoint and both launchers."""
+optim, data, collective_exec, train, checkpoint, both launchers and the
+SSM/hybrid slice (models.ssm, the mamba2_scan kernel, the zamba2
+config)."""
 import ast
 import os
 import subprocess
@@ -37,7 +39,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.collective_exec.cache",
               "repro_torch.train.step", "repro_torch.train.loop",
               "repro_torch.checkpoint.manager",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.models.ssm",
+              "repro_torch.kernels.mamba2_scan",
+              "repro_torch.configs.zamba2_7b"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -14,6 +14,7 @@ from repro.kernels.ops import flash_attention_op, flash_decode_op
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import mamba2_scan as MS
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -101,7 +102,7 @@ def _decode_inputs(B, H, Kh, W, hd, seed, all_invalid_row=False):
 @pytest.mark.parametrize("B,H,Kh,W,hd,all_invalid", [
     (2, 4, 4, 512, 64, False), (2, 8, 2, 1024, 64, False),
     (1, 4, 1, 256, 128, False), (3, 9, 3, 100, 64, False),
-    (2, 9, 3, 256, 64, True)])
+    (2, 9, 3, 256, 64, True), (2, 4, 4, 256, 112, False)])
 def test_flash_decode_plain_vs_pallas_and_ref(B, H, Kh, W, hd,
                                               all_invalid):
     q, k, v, valid = _decode_inputs(B, H, Kh, W, hd, W, all_invalid)
@@ -139,11 +140,17 @@ def test_a_non_cpu_tensor_never_takes_the_plain_version():
         FD.flash_decode(q[:, :, 0], kv, kv,
                         torch.empty((1, 4), dtype=torch.int32,
                                     device="meta"))
+    x = torch.empty((1, 2, 8, 16), device="meta")
+    bc = torch.empty((1, 8, 16), device="meta")
+    ad = torch.empty((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        MS.mamba2_scan(x, bc, bc, ad, ad)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.sources() == ["bucket_combine", "flash_attention",
-                               "flash_attention_bwd", "flash_decode"]
+                               "flash_attention_bwd", "flash_decode",
+                               "mamba2_scan"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)

@@ -89,7 +89,7 @@ def test_decode_state_bdims_and_families():
     api = get_api(get_config("smollm-135m").reduced())
     assert api.decode_state_bdims(4, 16) == {
         "layers": {"k": 1, "v": 1, "pos": 1}}
-    cfg = get_config("smollm-135m").reduced(family="ssm")
+    cfg = get_config("smollm-135m").reduced(family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_api(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
 
