@@ -11,10 +11,14 @@ transposes, for every ported family: dense ``blocks/{ln1, ln2,
 attn/{wq, wk, wv, wo[, bq, bk, bv]}, mlp/{gate, up, down}}`` stacked on
 the layer dim; plain ssm ``blocks/{ln1, ssm/{in_proj, conv_w, A_log, D,
 dt_bias, out_proj, norm_w}}`` stacked (L, ...); hybrid the same blocks
-stacked (G, k, ...) plus ``shared/{ln1, ln2, attn, mlp}``; and
-``embed``, ``final_norm`` (``lm_head`` when untied). Each leaf takes the
-dtype of the port's ``param_spec`` (``cfg.dtype``; ``A_log``, ``D`` and
-``dt_bias`` stay f32, as the reference keeps them).
+stacked (G, k, ...) plus ``shared/{ln1, ln2, attn, mlp}``; xLSTM
+``blocks/{m_ln, mlstm/{up, wq, wk, wv, wi, wf, fb, norm_w, down}}``
+stacked (G, k-1, ...) and ``blocks/{s_ln, slstm/{wx, wr, b, norm_w,
+down}}`` stacked (G, ...); and ``embed``, ``final_norm`` (``lm_head``
+when untied). Each leaf takes the dtype of the port's ``param_spec``
+(``cfg.dtype``; ``A_log``, ``D``, ``dt_bias``, the mLSTM gates ``wi``,
+``wf``, ``fb`` and the sLSTM bias ``b`` stay f32, as the reference keeps
+them).
 """
 from __future__ import annotations
 

@@ -16,15 +16,18 @@ import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
-               layers: Optional[int], dtype: torch.dtype,
-               device) -> torch.Tensor:
-    """(L?, in, out) truncated-normal fan-in init (the reference's
-    distribution; ``jax.random`` streams are not reproduced)."""
+               layers: Optional[int], dtype: torch.dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """(L?, in, out) truncated-normal init, fan-in scaled unless
+    ``scale`` is given (the reference's distribution; ``jax.random``
+    streams are not reproduced)."""
     shape = (in_dim, out_dim) if layers is None else (layers, in_dim, out_dim)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
-    return (w / math.sqrt(in_dim)).to(dtype)
+    if scale is None:
+        return (w / math.sqrt(in_dim)).to(dtype)
+    return (w * scale).to(dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

@@ -3,9 +3,11 @@
 Port of ``repro/models/registry.py``. ``ModelAPI`` hides family
 differences behind init / loss / prefill / decode; the pipeline-stage
 functions wait for ROADMAP A.9 and the input specs for the dry-run
-tooling (A.11). Only configs of the families the port has (dense,
-hybrid) are registered; ``reduced(family="ssm", hybrid_attn_every=0)``
-of the hybrid gives the plain-ssm family.
+tooling (A.11). Only configs of the families the port has are
+registered: smollm-135m (dense), zamba2-7b (hybrid) and xlstm-125m
+(xLSTM: family ssm with sLSTM groups);
+``reduced(family="ssm", hybrid_attn_every=0)`` of the hybrid gives the
+plain-ssm family.
 """
 from __future__ import annotations
 
@@ -89,9 +91,9 @@ class ModelAPI:
 
     def prefill_state_fn(self, params, tokens: torch.Tensor, lengths, *,
                          window: int):
-        """Bulk prefill for RECURRENT decode states (ssm/hybrid): one
+        """Bulk prefill for RECURRENT decode states (ssm/xlstm/hybrid): one
         length-masked decode pass over a padded (G, S_bucket) prompt
-        group. A row's state (its SSM carries, KV rows and ``pos``)
+        group. A row's state (its recurrent carries, KV rows and ``pos``)
         freezes once ``t >= lengths[g]``, so the final state equals the
         one token-by-token admission produces, leaf for leaf. Returns
         (next_logits (G, V) f32 at each request's own len-1, decode
@@ -161,4 +163,5 @@ def get_api(name_or_cfg) -> ModelAPI:
 
 
 def _load_all():
-    from ..configs import smollm_135m, zamba2_7b  # noqa: F401  (register)
+    from ..configs import (smollm_135m, xlstm_125m,  # noqa: F401
+                           zamba2_7b)                # (register)

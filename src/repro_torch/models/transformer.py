@@ -1,5 +1,5 @@
-"""Decoder stacks of the dense, plain-ssm and hybrid (zamba2) families.
-Port of those branches of ``repro/models/transformer.py``:
+"""Decoder stacks of the dense, plain-ssm, hybrid (zamba2) and xLSTM
+families. Port of those branches of ``repro/models/transformer.py``:
 ``init_params``, ``param_spec``, ``forward`` (training with optional
 remat, and the prefill -> decode cache handoff), the decode state and
 ``decode_step``.
@@ -9,18 +9,20 @@ a Python loop walks the same stacked tensors layer by layer (unbound
 once per forward, so the backward stacks the per-layer gradients in one
 op). The hybrid family is a GROUP scan: G groups of k Mamba2 blocks,
 each group followed by the one shared attention+MLP block, whose KV
-caches are stacked per application, (G, ...). ``remat`` checkpoints one
-scan element (a layer, or a hybrid group) as ``jax.checkpoint(body)``
-does: only its input is kept and the backward recomputes it. Other
-families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; the pipeline-stage split (``embed_tokens``,
+caches are stacked per application, (G, ...). xLSTM (family ssm with
+``slstm_every = k``) is a GROUP scan too: G groups of k-1 mLSTM blocks
+and one sLSTM block, parameters stacked (G, k-1, ...) and (G, ...).
+``remat`` checkpoints one scan element (a layer, or a group) as
+``jax.checkpoint(body)`` does: only its input is kept and the backward
+recomputes it. Other families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them; the pipeline-stage split (``embed_tokens``,
 ``forward_stage``, ``head_logits``) waits for ROADMAP A.9.
 
-``decode_step`` updates the state in place (KV caches, SSM carries),
-where the reference returns a new tree. Its optional ``live`` (B,) mask
-leaves a row's state untouched, its KV write included: the length-masked
-admission scan (``ModelAPI.prefill_state_fn``) freezes a row past its
-prompt with it.
+``decode_step`` updates the state in place (KV caches, SSM, mLSTM and
+sLSTM carries), where the reference returns a new tree. Its optional
+``live`` (B,) mask leaves a row's state untouched, its KV write
+included: the length-masked admission scan (``ModelAPI.prefill_state_fn``)
+freezes a row past its prompt with it.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import attention as A
 from . import ssm as SSM
+from . import xlstm as XL
 from .layers import (embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm,
                      unembed_apply)
 
@@ -41,7 +44,6 @@ _PENDING = {
     "moe": "ROADMAP A.8 (MoE)",
     "vlm": "ROADMAP A.8 (VLM backbone)",
     "audio": "ROADMAP A.8 (enc-dec)",
-    "xlstm": "ROADMAP A.7 (xLSTM: mlstm_chunkwise)",
 }
 
 
@@ -50,20 +52,20 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Dense, plain-ssm and hybrid decoders are ported; xLSTM (family
-    ssm with sLSTM groups), MoE, VLM and enc-dec are not."""
-    kind = "xlstm" if cfg.slstm_every else cfg.family
-    if cfg.is_encdec or kind not in ("dense", "ssm", "hybrid"):
+    """Dense, plain-ssm, hybrid and xLSTM (family ssm with sLSTM
+    groups) decoders are ported; MoE, VLM and enc-dec are not."""
+    if cfg.is_encdec or cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: family {kind!r} is not ported yet; see "
-            f"{_PENDING.get(kind, 'ROADMAP')}")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
+            f"{_PENDING.get(cfg.family, 'ROADMAP')}")
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
-    """Hybrid: (G groups, k Mamba2 blocks per group)."""
-    k = cfg.hybrid_attn_every
+    """(G groups, k blocks per group): hybrid k Mamba2 blocks (then the
+    shared block), xLSTM k-1 mLSTM blocks and one sLSTM block."""
+    k = cfg.hybrid_attn_every or cfg.slstm_every
     assert k and cfg.n_layers % k == 0, \
-        f"hybrid: {cfg.n_layers} layers not divisible by period {k}"
+        f"{cfg.name}: {cfg.n_layers} layers not divisible by group {k}"
     return cfg.n_layers // k, k
 
 
@@ -108,6 +110,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                 qkv_bias=cfg.qkv_bias),
             "mlp": mlp_init(gen, D, cfg.d_ff, layers=L, dtype=dt,
                             device=device),
+        }
+        return p
+    if cfg.slstm_every:
+        G, k = _groups(cfg)
+        p["blocks"] = {
+            "m_ln": torch.ones((G, k - 1, D), dtype=dt, device=device),
+            "s_ln": torch.ones((G, D), dtype=dt, device=device),
+            "mlstm": _regroup(XL.mlstm_init(gen, D, n_heads=cfg.n_heads,
+                                            layers=G * (k - 1), dtype=dt,
+                                            device=device), G, k - 1),
+            "slstm": XL.slstm_init(gen, D, n_heads=cfg.n_heads, layers=G,
+                                   dtype=dt, device=device),
         }
         return p
     ssm_p = SSM.ssm_init(gen, D, layers=L, dtype=dt, device=device,
@@ -157,6 +171,16 @@ def param_spec(cfg: ModelConfig) -> Params:
         attn, mlp = attn_mlp(L)
         p["blocks"] = {"ln1": m(L, D), "ln2": m(L, D), "attn": attn,
                        "mlp": mlp}
+        return p
+    if cfg.slstm_every:
+        G, k = _groups(cfg)
+        kw = dict(n_heads=cfg.n_heads, layers=None, dtype=dt)
+        p["blocks"] = {
+            "m_ln": m(G, k - 1, D), "s_ln": m(G, D),
+            "mlstm": {n: m(G, k - 1, *s, dtype=sdt) for n, (s, sdt)
+                      in XL.mlstm_param_shapes(D, **kw).items()},
+            "slstm": {n: m(G, *s, dtype=sdt) for n, (s, sdt)
+                      in XL.slstm_param_shapes(D, **kw).items()}}
         return p
     lead = (L,) if cfg.family == "ssm" else _groups(cfg)
     shapes = SSM.ssm_param_shapes(D, layers=None, dtype=dt, **_ssm_kw(cfg))
@@ -233,12 +257,26 @@ def _hybrid_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
     return h, k, v
 
 
+def _xlstm_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
+                 positions: torch.Tensor, shared: Optional[Dict]):
+    """k-1 mLSTM blocks, then the sLSTM block: (h, None, None)."""
+    k = cfg.slstm_every
+    for pm in _unstack({"m_ln": pg["m_ln"], "mlstm": pg["mlstm"]}, k - 1):
+        h = h + XL.mlstm_apply(pm["mlstm"],
+                               rmsnorm(h, pm["m_ln"], cfg.norm_eps),
+                               n_heads=cfg.n_heads)
+    return h + XL.slstm_apply(pg["slstm"],
+                              rmsnorm(h, pg["s_ln"], cfg.norm_eps),
+                              n_heads=cfg.n_heads), None, None
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             remat: bool = False, want_cache: bool = False):
     """Full-sequence forward. tokens: (B, S). Returns
     (logits (B,S,V), aux_loss, caches|None); caches are
     {"layers": {"k","v"}} stacked (L or G, B, S, Kh, hd), k post-RoPE —
-    {"layers": None} for the plain-ssm family, which has no KV.
+    {"layers": None} for the plain-ssm and xLSTM families, which have no
+    KV.
     ``remat`` recomputes each scan element in the backward (training
     only)."""
     _require_ported(cfg)
@@ -252,6 +290,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     shared = params.get("shared")
     if cfg.family == "hybrid":
         body, n = _hybrid_group, _groups(cfg)[0]
+    elif cfg.slstm_every:
+        body, n = _xlstm_group, _groups(cfg)[0]
     else:
         body, n = ((_block if cfg.family == "dense" else _ssm_block),
                    cfg.n_layers)
@@ -281,7 +321,8 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
     """{"layers": {leaf: (shape, dtype)}} of the decode state, in the
     reference's tree: dense {"k","v","pos"} (L, B, ...); plain ssm
     {"h","conv"} (L, B, ...); hybrid {"ssm": {"h","conv"} (G, k, B, ...),
-    "shared": {"k","v","pos"} (G, B, ...)}."""
+    "shared": {"k","v","pos"} (G, B, ...)}; xLSTM {"mlstm": {"C","n","m"}
+    (G, k-1, B, ...), "slstm": {"c","n","m","h"} (G, B, ...)}."""
     _require_ported(cfg)
     dt = _dt(cfg)
     W = min(window, cfg.sliding_window) if cfg.sliding_window else window
@@ -292,6 +333,13 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
                 "pos": ((n, batch, W), torch.int32)}
     if cfg.family == "dense":
         return {"layers": kv(cfg.n_layers)}
+    if cfg.slstm_every:
+        G, k = _groups(cfg)
+        ms = XL.mlstm_state_shapes(batch, cfg.d_model, n_heads=cfg.n_heads)
+        ss = XL.slstm_state_shapes(batch, cfg.d_model, n_heads=cfg.n_heads)
+        return {"layers": {
+            "mlstm": {n: ((G, k - 1, *s), sdt) for n, (s, sdt) in ms.items()},
+            "slstm": {n: ((G, *s), sdt) for n, (s, sdt) in ss.items()}}}
     ssm = SSM.ssm_state_shapes(batch, cfg.d_model, dtype=dt, **_ssm_kw(cfg))
     if cfg.family == "ssm":
         return {"layers": {n: ((cfg.n_layers, *s), sdt)
@@ -304,7 +352,9 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
 
 def init_decode_state(cfg: ModelConfig, batch: int, window: int,
                       device="cuda") -> Dict:
-    """Zeros, and -1 (= empty slot) for the int32 position leaves."""
+    """Zeros, and -1 (= empty slot) for the int32 position leaves. The
+    mLSTM and sLSTM stabilisers ``m`` start at 0 too, as the reference's
+    zero-filled state does (the start value only rescales the carries)."""
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
@@ -324,17 +374,22 @@ def _decode_attn(cfg: ModelConfig, p: Dict, hn: torch.Tensor,
                               live=live)[0]
 
 
-def _ssm_decode(cfg: ModelConfig, pl: Dict, h: torch.Tensor, st: Dict,
-                live) -> torch.Tensor:
-    """One Mamba2 layer's decode step; writes its new carry into the
-    state views ``st`` (rows where ``live`` is False keep theirs)."""
-    y, new = SSM.ssm_decode_step(pl["ssm"], rmsnorm(h, pl["ln1"],
-                                                    cfg.norm_eps),
-                                 st, **_ssm_kw(cfg))
+def _write_state(st: Dict, new: Dict, live) -> None:
+    """Write a layer's new carries into its state views ``st`` (rows
+    where ``live`` is False keep theirs)."""
     for name, v in new.items():
         if live is not None:
             v = torch.where(live.view(-1, *[1] * (v.ndim - 1)), v, st[name])
         st[name].copy_(v)
+
+
+def _ssm_decode(cfg: ModelConfig, pl: Dict, h: torch.Tensor, st: Dict,
+                live) -> torch.Tensor:
+    """One Mamba2 layer's decode step; writes its new carry into ``st``."""
+    y, new = SSM.ssm_decode_step(pl["ssm"], rmsnorm(h, pl["ln1"],
+                                                    cfg.norm_eps),
+                                 st, **_ssm_kw(cfg))
+    _write_state(st, new, live)
     return h + y
 
 
@@ -356,6 +411,24 @@ def decode_step(cfg: ModelConfig, params: Params, state: Dict,
                                  rmsnorm(h, pl["ln1"], cfg.norm_eps), t,
                                  _layer(layers, l), live)
             h = h + mlp_apply(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+    elif cfg.slstm_every:
+        G, k = _groups(cfg)
+        for g in range(G):
+            for j in range(k - 1):
+                pm = _layer(blocks["mlstm"], (g, j))
+                st = _layer(layers["mlstm"], (g, j))
+                y, new = XL.mlstm_decode_step(
+                    pm, rmsnorm(h, blocks["m_ln"][g, j], cfg.norm_eps), st,
+                    n_heads=cfg.n_heads)
+                _write_state(st, new, live)
+                h = h + y
+            st = _layer(layers["slstm"], g)
+            y, new = XL.slstm_decode_step(
+                _layer(blocks["slstm"], g),
+                rmsnorm(h, blocks["s_ln"][g], cfg.norm_eps), st,
+                n_heads=cfg.n_heads)
+            _write_state(st, new, live)
+            h = h + y
     elif cfg.family == "ssm":
         for l in range(cfg.n_layers):
             h = _ssm_decode(cfg, _layer(blocks, l), h, _layer(layers, l),

@@ -13,7 +13,9 @@ They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 Tolerances: a kernel against its plain version, bf16 2e-2 and f32 1e-4
 (sums in another order; the backward's relative to max(1, max|ref|));
 the SSD scan the reference kernel test's 3e-2 and 1e-3 (relative and
-absolute: its cumulative log-decay makes its f32 sums less exact);
+absolute: its cumulative log-decay makes its f32 sums less exact); the
+mLSTM kernel 2e-4 with y in f32 (the reference kernel test's) and 2e-2
+with y in bf16, relative to max(1, max|ref|);
 the bucket combine bitwise; the f32 model on the card against the CPU,
 1e-4, and its gradients 1e-4 of each leaf's largest value; a train
 step's parameters 1e-4 (Adam's first step divides each gradient by its
@@ -32,6 +34,7 @@ from repro_torch.kernels import bucket_combine as BC
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import mamba2_scan as MS
+from repro_torch.kernels import mlstm_kernel as MK
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_api, get_config
@@ -359,6 +362,162 @@ def test_hybrid_engine_on_card_serves_what_the_cpu_serves():
 
 def test_launch_serve_cli_hybrid_on_card(capsys):
     rc = launch_serve.main(["--arch", "zamba2-7b", "--reduced",
+                            "--requests", "5", "--batch", "2",
+                            "--window", "16", "--prompt-len", "20",
+                            "--max-new", "3"])
+    assert rc == 0
+    assert "served 5/5 requests" in capsys.readouterr().out
+
+
+# ----------------------------------------------------------------- xLSTM
+# y in f32: within 2e-4 of max(1, max|ref|); y in bf16: element-wise,
+# 2e-2 of each |ref| plus 1e-2 (one bf16 rounding either side)
+MLSTM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _mlstm_inputs(gen, B, NH, S, hd, dtype):
+    """The model's layout: q, k, v (B, NH, S, hd) views of (B, S, NH, hd)
+    slices of one wider projection, logi and logf (B, NH, S) views of
+    (B, S, NH) f32; the reference kernel test's distributions."""
+    qkv = _randn(gen, (B, S, NH, 3 * hd + 8), torch.float32)
+    q = qkv[..., :hd].to(dtype)
+    k = (qkv[..., hd:2 * hd] / hd ** 0.5).to(dtype)
+    v = qkv[..., 2 * hd:3 * hd].to(dtype)
+    logi = 0.5 * torch.randn((B, S, NH), generator=gen, device="cuda")
+    logf = torch.nn.functional.logsigmoid(
+        torch.randn((B, S, NH), generator=gen, device="cuda") + 2.0)
+    return tuple(t.transpose(1, 2) for t in (q, k, v, logi, logf))
+
+
+def _mlstm_close(got, want, out_dtype):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    if out_dtype == torch.bfloat16:
+        got, want = got.float(), want.float()
+        assert ((got - want).abs() <= MLSTM_TOL[out_dtype] * want.abs()
+                + 1e-2).all()
+        return
+    scale = max(1.0, want.float().abs().max().item())
+    assert _err(got, want) <= MLSTM_TOL[out_dtype] * scale
+
+
+@pytest.mark.parametrize("out", ["same", "f32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,NH,S,hd", [
+    (2, 2, 256, 64), (1, 4, 512, 32),   # the reference kernel test's
+    (1, 3, 1, 32),                      # one row
+    (2, 2, 100, 64),                    # ragged: one chunk + 36 rows
+    (1, 4, 1000, 384),                  # xlstm-125m's hd, 15 chunks + 40
+    (2, 1, 40, 384),                    # one short chunk
+])
+def test_mlstm_chunkwise_matches_plain(B, NH, S, hd, dtype, out):
+    gen = torch.Generator("cuda").manual_seed(S + hd)
+    ins = _mlstm_inputs(gen, B, NH, S, hd, dtype)
+    out_dtype = torch.float32 if out == "f32" else dtype
+    n = MK.mlstm_chunkwise.launches
+    got = MK.mlstm_chunkwise(*ins, out_dtype=out_dtype)
+    assert MK.mlstm_chunkwise.launches == n + 1
+    assert got.shape == (B, NH, S, hd) and got.dtype == out_dtype
+    _mlstm_close(got, MK.mlstm_chunkwise_plain(*ins, out_dtype=out_dtype),
+                 out_dtype)
+    # contiguous inputs: other strides, the same arithmetic; and a second
+    # run: no atomics, so bitwise the same
+    again = MK.mlstm_chunkwise(*(t.contiguous() for t in ins),
+                               out_dtype=out_dtype)
+    assert torch.equal(again, got)
+
+
+def test_mlstm_chunkwise_ragged_tail_reads_nothing_past_s():
+    """A ragged S cut from a longer sequence: the rows past S (which
+    would change every later output) are never read."""
+    gen = torch.Generator("cuda").manual_seed(9)
+    full = _mlstm_inputs(gen, 2, 4, 300, 384, torch.bfloat16)
+    cut = tuple(t[:, :, :130] for t in full)
+    got = MK.mlstm_chunkwise(*cut, out_dtype=torch.float32)
+    want = MK.mlstm_chunkwise(*(t.contiguous() for t in cut),
+                              out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    head = MK.mlstm_chunkwise(*full, out_dtype=torch.float32)[:, :, :130]
+    torch.testing.assert_close(head, got, rtol=1e-5, atol=1e-5)
+
+
+def test_mlstm_chunkwise_refuses_what_it_cannot_take():
+    gen = torch.Generator("cuda").manual_seed(10)
+    q, k, v, li, lf = _mlstm_inputs(gen, 1, 2, 64, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MK.mlstm_chunkwise(q.requires_grad_(True), k, v, li, lf)
+    q = q.detach()
+    with pytest.raises(ValueError, match="shapes"):
+        MK.mlstm_chunkwise(q[..., :48], k[..., :48], v[..., :48], li, lf)
+    with pytest.raises(TypeError, match="dtypes"):
+        MK.mlstm_chunkwise(q, k, v, li.double(), lf)
+    with pytest.raises(TypeError, match="dtypes"):
+        MK.mlstm_chunkwise(q.half(), k.half(), v.half(), li, lf)
+    with pytest.raises(ValueError, match="tensors on"):
+        MK.mlstm_chunkwise(q, k, v.cpu(), li, lf)
+    with torch.no_grad():                  # no gradient wanted: runs
+        MK.mlstm_chunkwise(q.requires_grad_(True), k, v, li, lf)
+
+
+def test_xlstm_model_on_card_matches_cpu():
+    """Reduced xlstm-125m in f32: prefill logits (S = 300, two of the
+    plain version's chunks), 12 decode steps, and the length-masked
+    admission pass's logits and state."""
+    cfg = get_config("xlstm-125m").reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        n = MK.mlstm_chunkwise.launches
+        logits, caches = api.prefill_full_fn(p, {"tokens": tokens.to(dev)})
+        assert caches == {"layers": None}
+        G = cfg.n_layers // cfg.slstm_every
+        assert (MK.mlstm_chunkwise.launches - n) == (
+            G * (cfg.slstm_every - 1) if dev == "cuda" else 0)
+        got = [logits]
+        state = api.init_decode_state(2, 8, dev)
+        for s in range(12):
+            t = torch.tensor([s, s + 3], dtype=torch.int32, device=dev)
+            lg, state = api.decode_fn(p, state, {"token": tokens[:, s]
+                                                 .to(dev), "t": t})
+            got.append(lg)
+        nxt, pstate = api.prefill_state_fn(p, tokens[:, :40].to(dev),
+                                           [40, 23], window=48)
+        outs[dev] = (got + tree_flatten(state)[1] + [nxt]
+                     + tree_flatten(pstate)[1])
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert b.is_cuda and torch.isfinite(b.float()).all()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+def test_xlstm_engine_on_card_serves_what_the_cpu_serves():
+    """Recurrent bulk groups, a prompt past the window (the sequential
+    path's fresh-slot reset) and slot reuse: the same tokens, epochs and
+    counters on both devices."""
+    cfg = get_config("xlstm-125m").reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 1, 12, 40, 3, 17, 8)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(api, _to(params, dev), batch=4, window=32)
+        reqs = [Request(i, p, max_new=5) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        runs[dev] = ([r.out for r in reqs], eng.epoch,
+                     eng.metrics.snapshot()["counters"])
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][2]["serve.admit.sequential"] == 1
+
+
+def test_launch_serve_cli_xlstm_on_card(capsys):
+    rc = launch_serve.main(["--arch", "xlstm-125m", "--reduced",
                             "--requests", "5", "--batch", "2",
                             "--window", "16", "--prompt-len", "20",
                             "--max-new", "3"])

@@ -1,9 +1,10 @@
 """The port stands alone: ``repro_torch`` imports with ``jax`` and
 ``repro`` blocked, and no file of it (nor ``chip_smoke.py``) imports
 either. The module list covers every subpackage: serving, kernels,
-optim, data, collective_exec, train, checkpoint, both launchers and the
+optim, data, collective_exec, train, checkpoint, both launchers, the
 SSM/hybrid slice (models.ssm, the mamba2_scan kernel, the zamba2
-config)."""
+config) and the xLSTM slice (models.xlstm, the mlstm_chunkwise kernel,
+the xlstm-125m config)."""
 import ast
 import os
 import subprocess
@@ -41,7 +42,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.checkpoint.manager",
               "repro_torch.launch.train", "repro_torch.models.ssm",
               "repro_torch.kernels.mamba2_scan",
-              "repro_torch.configs.zamba2_7b"):
+              "repro_torch.configs.zamba2_7b", "repro_torch.models.xlstm",
+              "repro_torch.kernels.mlstm_kernel",
+              "repro_torch.configs.xlstm_125m"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -15,6 +15,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import mamba2_scan as MS
+from repro_torch.kernels import mlstm_kernel as MK
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -145,12 +146,15 @@ def test_a_non_cpu_tensor_never_takes_the_plain_version():
     ad = torch.empty((1, 2, 8), device="meta")
     with pytest.raises(ValueError, match="meta"):
         MS.mamba2_scan(x, bc, bc, ad, ad)
+    qkv = torch.empty((1, 2, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        MK.mlstm_chunkwise(qkv, qkv, qkv, ad, ad)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.sources() == ["bucket_combine", "flash_attention",
                                "flash_attention_bwd", "flash_decode",
-                               "mamba2_scan"]
+                               "mamba2_scan", "mlstm_chunkwise"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
