@@ -8,8 +8,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``nvcc`` per source, all at once), timed;
 2. parity: each kernel against its plain PyTorch version on the card,
    at the serving path's shapes (smollm-135m: H=9, Kh=3, hd=64), in
-   bf16 (tolerance 2e-2) and f32 (1e-4); then timing of each kernel,
-   its plain version and one PyTorch library call as a yardstick;
+   bf16 (tolerance 2e-2) and f32 (1e-4); the attention forward's saved
+   per-row LSE against the plain one at the timing shape (1e-3); then
+   timing of each kernel (the attention rows with their achieved
+   TFLOP/s), its plain version and one PyTorch library call as a
+   yardstick. bf16 attention runs on the tensor-core kernels, f32 on
+   the CUDA-core ones (``ATTN_FWD_BF16`` and ``ATTN_BWD_BF16`` name the
+   CUDA functions a bf16 call launches); the host time to enqueue one
+   attention forward and backward at one token, bf16 (which builds TMA
+   descriptors) against f32;
 3. reference: a reduced smollm in f32 served through the kernels on the
    card and through the plain versions on the CPU, from the same
    parameters: prefill and decode logits agree within 1e-3;
@@ -55,8 +62,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ragged S=1000 and at one chunk (S=64), bf16 and f32 x, y in f32 as
    the model asks, within 3e-2 / 1e-3 (relative and absolute, the
    reference kernel test's); flash_attention and flash_decode at the
-   shared block's hd 112 (32 heads) within 2e-2 / 1e-4; then each timed
-   (no PyTorch call computes the scan: its library time is null);
+   shared block's hd 112 (32 heads) within 2e-2 / 1e-4, the forward's
+   LSE at its timing shape within 1e-3; then each timed (no PyTorch call
+   computes the scan: its library time is null);
 9. hybrid reference: reduced zamba2 in f32, kernels on the card against
    plain versions on the CPU: prefill and admission-pass logits within
    1e-4, the same requests served with identical token streams, epochs
@@ -132,6 +140,11 @@ SRC = os.path.join(HERE, "src")
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the attention kernels' CUDA functions in bf16 (the tensor-core kernels;
+# f32 keeps attn_kernel, bwd_dkdv and bwd_dq on the CUDA cores)
+ATTN_FWD_BF16 = ("fa_fwd_wgmma",)
+ATTN_BWD_BF16 = ("bwd_dot", "fa_dkdv_wgmma", "fa_dq_wgmma")
+LSE_TOL = 1e-3                   # the forward's saved LSE, bf16
 
 
 def fail(msg: str) -> None:
@@ -245,6 +258,60 @@ def _decode_inputs(B, W, dtype, gen, L=1, H=9, Kh=3, hd=64):
     return q, k, v, valid
 
 
+def print_timing(r: dict) -> None:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    rate = (f", {r['tflops']:.1f} TFLOP/s" if "tflops" in r else "")
+    print(f"timing {r['name']} ({r['shape']}), device ms per call: "
+          f"kernel {r['ms']:.4f} (host-timed {r['host_ms']:.4f}{rate}), "
+          f"plain {r['plain_ms']:.4f}, library {lib}, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def check_lse(q, k, v, window, what: str) -> None:
+    """The forward's saved per-row LSE (natural log) against the plain
+    one, bf16, causal, at a timing shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    _, lse = FA._forward(q, k, v, True, window, want_lse=True)
+    want = FA.attention_lse_ref(q, k, causal=True, sliding_window=window)
+    torch.cuda.synchronize()
+    e = (lse - want).abs().max().item()
+    print(f"parity flash_attention LSE bf16 {what} {tuple(q.shape)}: "
+          f"max_abs_err={e:.3e}")
+    if not e <= LSE_TOL:
+        fail(f"flash_attention LSE {what} err {e} > {LSE_TOL}")
+    del lse, want
+
+
+def enqueue_ms() -> None:
+    """Host milliseconds to enqueue one attention forward and one
+    backward at one token (B=1, S=1: the device work is negligible), bf16
+    against f32: the bf16 kernels' extra host cost is building their TMA
+    descriptors and checking the layout TMA needs."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 9, 1, 64), dtype=dtype, device="cuda")
+        kv = torch.zeros((1, 3, 1, 64), dtype=dtype, device="cuda")
+        out, lse = FA._forward(q, kv, kv, True, None, want_lse=True)
+        for what, fn in (
+                ("forward", lambda: FA.flash_attention(q, kv, kv)),
+                ("backward", lambda: FA.flash_attention_bwd(
+                    q, kv, kv, out, q, lse))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            got[f"{what} {str(dtype).split('.')[1]}"] = (
+                (time.perf_counter() - t0) / 200 * 1e3)
+            torch.cuda.synchronize()
+    print("host enqueue ms per attention call at B=1, S=1: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
+
+
 def phase_parity():
     """Each kernel against its plain version at the main path's shapes;
     returns the kernels' timing rows."""
@@ -292,10 +359,11 @@ def phase_parity():
     rows = []
     B, S, H, Kh, hd = 8, 1024, 9, 3, 64
     q, k, v = _attn_inputs(B, S, torch.bfloat16, gen)
+    check_lse(q, k, v, None, "hd 64")
     flops = 4 * B * H * hd * S * (S + 1) // 2          # causal half
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kh * hd)
     ms, host = time_ms(lambda: FA.flash_attention(q, k, v, causal=True),
-                       kernels=("attn_kernel",))
+                       kernels=ATTN_FWD_BF16)
     plain, _ = time_ms(lambda: FA.attention_ref(q, k, v, causal=True),
                        iters=3)
     lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
@@ -310,7 +378,7 @@ def phase_parity():
         "plain_ms": plain,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib})
+        "library_ms": lib, "tflops": flops / ms / 1e9})
 
     # decode: cycle the 30 layers of a full-size cache, as a decode step
     # does, so each launch finds its K/V cold in L2 (30 x 12.6 MB)
@@ -349,10 +417,8 @@ def phase_parity():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib})
     for r in rows:
-        print(f"timing {r['name']} ({r['shape']}), device ms per call: "
-              f"kernel {r['ms']:.4f} (host-timed {r['host_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        print_timing(r)
+    enqueue_ms()
     return rows
 
 
@@ -484,7 +550,9 @@ def phase_profile(api, params, eng) -> None:
 
 
 # the port's own kernels, by the names of their CUDA functions
-PORT_KERNELS = {"attention": ("attn_kernel", "decode_partial",
+PORT_KERNELS = {"attention": ("attn_kernel", "fa_fwd_wgmma", "bwd_dot",
+                              "bwd_dkdv", "bwd_dq", "fa_dkdv_wgmma",
+                              "fa_dq_wgmma", "decode_partial",
                               "decode_merge"), "ssd scan": ("ssd_kernel",),
                 "mlstm": ("mlstm_kernel",)}
 
@@ -599,7 +667,7 @@ def phase_train_parity():
     out = FA.flash_attention(*leaves, causal=True)
     ms, host = time_ms(lambda: torch.autograd.grad(out, leaves, do,
                                                    retain_graph=True),
-                       kernels=("bwd_dot", "bwd_dkdv", "bwd_dq"))
+                       kernels=ATTN_BWD_BF16)
     plain, _ = time_ms(lambda: FA.attention_bwd_ref(q, k, v, do), iters=3)
     sq = [x.detach().requires_grad_(True) for x in (q, k, v)]
     so = F.scaled_dot_product_attention(*sq, is_causal=True, enable_gqa=True)
@@ -620,7 +688,7 @@ def phase_train_parity():
         "host_ms": host, "plain_ms": plain,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib})
+        "library_ms": lib, "tflops": flops / ms / 1e9})
     del q, k, v, do, leaves, out, sq, so
 
     # the team-6 epoch's whole stacked buffer, the main path's shape:
@@ -665,10 +733,7 @@ def phase_train_parity():
     del acc, y
     torch.cuda.empty_cache()
     for r in rows:
-        print(f"timing {r['name']} ({r['shape']}), device ms per call: "
-              f"kernel {r['ms']:.4f} (host-timed {r['host_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        print_timing(r)
     return rows
 
 
@@ -930,6 +995,8 @@ def phase_train_profile(loop, params, opt_state) -> None:
     for k, ms in kernels:
         by_name[k] = by_name.get(k, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    attn = sum(v for k, v in by_name.items()
+               if any(m in k for m in PORT_KERNELS["attention"]))
     parts = "; ".join(f"{k[len(RANGE_PREFIX):]} host "
                       f"{v.get('host_ms', float('nan')):.3f} ms device "
                       f"{v.get('device_ms', float('nan')):.3f} ms"
@@ -937,7 +1004,8 @@ def phase_train_profile(loop, params, opt_state) -> None:
     print(f"profile train step (team {n}, {tuple(batch['tokens'].shape)} "
           f"tokens): host wall "
           f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / (1e3 * wall):.1f}%); {parts}; top: "
+          f"({100 * busy / (1e3 * wall):.1f}%); attention kernels "
+          f"{attn:.3f} ms; {parts}; top: "
           + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
     with open(os.path.join(HERE, "chiprun_out", "train_profile.txt"),
               "w") as f:
@@ -1066,11 +1134,12 @@ def phase_hybrid_parity():
     # the shared block's prefill attention, hd 112
     B, S, H, hd = 2, 2048, 32, 112
     q, k, v = _attn_inputs(B, S, torch.bfloat16, gen, **SHARED)
+    check_lse(q, k, v, 4096, "hd 112")
     flops = 4 * B * H * hd * S * (S + 1) // 2
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * H * hd)
     ms, host = time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
                                                   sliding_window=4096),
-                       kernels=("attn_kernel",))
+                       kernels=ATTN_FWD_BF16)
     plain, _ = time_ms(lambda: FA.attention_ref(
         q, k, v, causal=True, sliding_window=4096), iters=3)
     lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1084,7 +1153,7 @@ def phase_hybrid_parity():
         "max_abs_err": err["fa112"], "ms": ms, "host_ms": host,
         "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib})
+        "library_ms": lib, "tflops": flops / ms / 1e9})
     del q, k, v
 
     # the shared block's decode over the serve cell's 27 applications'
@@ -1125,12 +1194,7 @@ def phase_hybrid_parity():
     del q, k, v, views
     torch.cuda.empty_cache()
     for r in rows:
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        print(f"timing {r['name']} ({r['shape']}), device ms per call: "
-              f"kernel {r['ms']:.4f} (host-timed {r['host_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f}, library {lib}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        print_timing(r)
     return rows
 
 

@@ -10,39 +10,75 @@
 // that property: P = exp(s * sm_scale - lse) is recomputed tile by tile
 // from the forward kernel's saved per-row log-sum-exp, never stored.
 // Semantics follow the forward: head h reads KV head h / (H/Kh); causal
-// and sliding-window masks on indices with the finite -1e30 for a
-// masked in-range key (its P is exp(-1e30 - lse) = 0), keys past Sk and
-// query rows past Sq weigh nothing, so ragged Sq/Sk work; the forward's
-// division by max(l, 1e-30) is folded into lse (l >= 1 for any row with
-// a visible key, which every causal row has: its diagonal).
+// and sliding-window masks on indices, a masked key's P is 0; keys past
+// Sk and query rows past Sq weigh nothing, so ragged Sq/Sk work; the
+// forward's division by max(l, 1e-30) is folded into lse (l >= 1 for any
+// row with a visible key, which every causal row has: its diagonal).
 //
-// Bound on the card: the backward does five (S x S x hd) products where
-// the forward does two (S = Q K^T and dP = dO V^T recomputed, then
-// dV = P^T dO, dK = dS^T Q, dQ = dS K): about 2.5x the forward's causal
-// flops against q, k, v, o, dO read once and dq, dk, dv written once,
-// far above the ridge, so operations bound it (989 TFLOP/s bf16). This
-// first version runs f32 on the CUDA cores, as the forward does, and so
-// sits far above that bound; mma.sync / wgmma is later work.
+// Bound on the card: five (S x S x hd) products where the forward does
+// two (S = Q K^T and dP = dO V^T recomputed, then dV = P^T dO,
+// dK = dS^T Q, dQ = dS K), against q, k, v, o, dO read once and dq, dk,
+// dv written once: far above the ridge, so the tensor cores bound it
+// (989 TFLOP/s bf16).
 //
-// Design: three launches, no atomics, deterministic.
+// Three launches, no atomics, deterministic (two runs are bitwise
+// equal):
 //  1. bwd_dot: D = rowsum(dO * O), one warp per (b, h, row).
-//  2. bwd_dkdv: one block per (b, KV head, 64-key tile). It loops over
-//     the g query heads of its group and over the q tiles that can see
-//     the key tile (causal: q tiles at or after it; window: those within
-//     window of its last key), accumulating dK and dV in f32 registers,
-//     so GQA's sum over the group's heads needs no atomics.
-//  3. bwd_dq: one block per (b, head, 64-query tile), looping over the
-//     key tiles the forward visits, accumulating dQ in registers.
-// 256 threads; each owns a 4 x 4 patch of the 64 x 64 score tile (rows
-// ty*4.., columns tx + 16j) and 4 rows x hd/16 columns of its output
-// accumulator. Tiles are staged in shared memory as f32 with padded rows
-// (no bank conflicts on the column walks). q, k, v, o, dO, dq, dk, dv are
-// addressed through element strides of their three outer dims (last dim
-// contiguous), so the model's transposed (B, S, H, hd) views go in and
-// the gradients come out in the layout of the inputs, uncopied.
+//  2. dK / dV: one CTA per (64-key tile, KV head, batch row), key tiles
+//     heaviest first (under the causal mask the first key tile sees every
+//     q tile). It loops over the g query heads of its group and over the
+//     q tiles that can see the key tile, accumulating dK and dV in f32
+//     registers, so GQA's sum over the group's heads needs no atomics.
+//  3. dQ: one CTA per (64-query tile, head, batch row), heaviest first,
+//     looping over the key tiles the forward visits.
+// The second pass recomputes S and dP, so the backward executes 7
+// products where the bound counts 5: the price of staying atomic-free.
+//
+// bf16 (the training path): fa_dkdv_wgmma and fa_dq_wgmma, products on
+// the tensor cores (wgmma), tiles of 64 rows brought by TMA, in the
+// 128-byte-swizzled layout of hopper.cuh. Both grids are 1-D with the
+// tile index slowest and the heaviest tiles first.
+//  - dK / dV pass: 288 threads. A producer warp loads K and V once, then
+//    streams (head in group, q tile) pairs of Q and dO through a 4-stage
+//    ring with full / empty mbarriers, and writes each pair's 64 LSE and
+//    D values beside them in shared memory. Two consumer warpgroups take
+//    alternate pairs, both for the tile's 64 key rows, and sum their dK
+//    and dV through shared memory at the end, in a fixed order. The
+//    products, all with M = the 64 key rows:
+//    S^T = K Q^T and dP^T = V dO^T (A = K or V, B = Q or dO, K-major);
+//    P^T = exp(S^T * scale - LSE) and dS^T = P^T o (dP^T - D) in
+//    registers, LSE and D read by column (a q row); dV += P^T dO and
+//    dK += dS^T Q with P^T and dS^T rounded to bf16 as the register-A
+//    operand and dO or Q the MN-major B operand.
+//  - dQ pass: 160 threads, one consumer warpgroup and a producer warp
+//    that loads Q and dO once and streams K and V through a 2-stage ring;
+//    S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K with K the
+//    MN-major B operand.
+//  - hd 112 is loaded as 128 and hd 16 / 32 as 64 (TMA fills the extra
+//    columns with zeros); the extra output columns are not stored.
+//  - P and dS are rounded to bf16 before the second products, where the
+//    f32 kernel keeps them in f32; the tolerances are the f32 kernel's.
+//  - Registers (ptxas): the dK / dV pass 168 at hd <= 64, no spill; at
+//    hd 112 / 128 (no main path: zamba2 is served, not trained) its two
+//    128-column accumulators spill 964 bytes. The dQ pass 133 (hd <= 64)
+//    and 165 (hd 112 / 128), no spill. The pass fits 168 registers at
+//    hd <= 64 because LSE and D come from shared memory, not registers;
+//    it uses no setmaxnreg.
+//  - TMA needs a 16-byte-aligned base and every outer stride a multiple
+//    of 16 bytes; the wrapper checks q, k, v and dO and raises otherwise.
+//
+// f32 (the reference phases and card tests only): bwd_dkdv<float> and
+// bwd_dq<float>, the CUDA-core kernels of the first port, unchanged:
+// those checks hold the gradient to 1e-4 of the plain version, which
+// TF32 or bf16 products cannot meet. 256 threads, each a 4 x 4 patch of
+// the 64 x 64 score tile and 4 rows x hd/16 columns of its output
+// accumulator, tiles staged as f32 with padded rows. The dispatch is by
+// dtype only.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -56,9 +92,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, h, s;
@@ -388,6 +421,415 @@ int launch_hd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16: the tensor cores
+using hopper::desc;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Bwd {
+  static constexpr int HDP = HD <= 64 ? 64 : 128;   // head dim as loaded
+  static constexpr int PANELS = HDP / 64;           // 128-byte panels
+  static constexpr int TILE = 64 * HDP * 2;         // bytes of a 64-row tile
+  // dK / dV pass: K, V, then a ring of 4 stages of (Q, dO), two for each
+  // consumer warpgroup; 2 consumer warpgroups + the producer's
+  static constexpr int KV_STAGES = 4;
+  static constexpr int KV_TILES = 2 * TILE + KV_STAGES * 2 * TILE;
+  static constexpr int KV_ROWS = KV_STAGES * 128 * 4;   // LSE and D a stage
+  static constexpr int KV_SMEM = KV_TILES + KV_ROWS + 128 + 1024;
+  static constexpr int KV_THREADS = 288;
+  // dQ pass: Q, dO, then a ring of 2 stages of (K, V); 1 consumer
+  // warpgroup + a producer warp
+  static constexpr int Q_TILES = 6 * TILE;
+  static constexpr int Q_SMEM = Q_TILES + 64 + 1024;
+  static constexpr int Q_THREADS = 160;
+};
+
+// one 64-row tile (all panels) of a map at sequence row r0, head h
+template <int PANELS>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
+                                          int h, int r0, int b,
+                                          uint64_t* bar) {
+#pragma unroll
+  for (int p = 0; p < PANELS; ++p)
+    hopper::tma_load(dst + p * 64 * 128, map, 64 * p, h, r0, b, bar);
+}
+
+// acc(64 x 64) = A(64 rows x HDP) B(64 rows x HDP)^T, both tiles K-major
+template <int HDP>
+__device__ __forceinline__ void tile_nt(float (&acc)[32], const uint8_t* a,
+                                        const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)   // panel kk / 4, 32 B a step
+    hopper::wgmma_ss(acc, desc(a + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16,
+                               1024),
+                     desc(b + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+                     kk > 0);
+}
+
+// acc(64 x HDP) += A(64 x 64, bf16 fragments) B(64 rows x HDP), B MN-major
+template <int N>
+__device__ __forceinline__ void tile_nn(float (&acc)[N],
+                                        const uint32_t (&a)[4][4],
+                                        const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_rs(acc, a[kk], desc(b + kk * 16 * 128, 64 * 128, 1024));
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, const Args& a) {
+  return qpos < a.Sq && kpos < a.Sk && (!a.causal || kpos <= qpos) &&
+         (a.window <= 0 || qpos - kpos < a.window);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(288, 1)
+fa_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap dmap,
+              const float* __restrict__ lse, const float* __restrict__ D,
+              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+              Args a) {
+  using C = Bwd<HD>;
+  constexpr int HDP = C::HDP, ST = C::KV_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = sm;
+  uint8_t* Vs = sm + C::TILE;
+  uint8_t* ring = sm + 2 * C::TILE;        // stage s: Q, then dO
+  // stage s: the 64 q rows' LSE (log2 units), then their D
+  float* rows = reinterpret_cast<float*>(sm + C::KV_TILES);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + C::KV_TILES + C::KV_ROWS);
+  uint64_t* kvbar = bar;
+  uint64_t* full = bar + 1;                // [ST]
+  uint64_t* empty = bar + 1 + ST;          // [ST]
+
+  // a 1-D grid, key tile slowest and first first: under the causal mask
+  // the first key tiles see the most q tiles, and start in the first wave
+  const int per_tile = (int)gridDim.x / ((a.Sk + 63) / 64);   // Kh * B
+  const int k0 = (int)blockIdx.x / per_tile * 64;
+  const int kh = (int)blockIdx.x % per_tile % a.Kh;
+  const int b = (int)blockIdx.x % per_tile / a.Kh;
+  const int g = a.H / a.Kh;
+  // q tiles holding a row that sees some key of this tile
+  const int kmax = min(k0 + 64, a.Sk) - 1;
+  int qt_begin = 0, qt_end = (a.Sq + 63) / 64;
+  if (a.causal) qt_begin = k0 / 64;
+  if (a.window > 0) qt_end = min(qt_end, (kmax + a.window - 1) / 64 + 1);
+  const int nq = max(0, qt_end - qt_begin);
+  const int npairs = g * nq;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // TMA + the producer's lanes
+      hopper::mbar_init(&empty[s], 4);     // the consuming warpgroup's warps
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                         // producer
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kvbar, 2 * C::TILE);
+      load_rows<C::PANELS>(Ks, &kmap, kh, k0, b, kvbar);
+      load_rows<C::PANELS>(Vs, &vmap, kh, k0, b, kvbar);
+    }
+    for (int n = 0; n < npairs; ++n) {
+      const int s = n % ST;
+      const int h = kh * g + n / nq;
+      const int q0 = (qt_begin + n % nq) * 64;
+      hopper::mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&full[s], 2 * C::TILE);
+        uint8_t* qd = ring + s * 2 * C::TILE;
+        load_rows<C::PANELS>(qd, &qmap, h, q0, b, &full[s]);
+        load_rows<C::PANELS>(qd + C::TILE, &dmap, h, q0, b, &full[s]);
+      }
+      // the pair's LSE and D beside its tiles, so the consumers hold
+      // no copy in registers
+      const long long lrow = ((long long)b * a.H + h) * a.Sq;
+      for (int r = lane; r < 64; r += 32) {
+        const bool in = q0 + r < a.Sq;
+        rows[s * 128 + r] = in ? lse[lrow + q0 + r] * LOG2E : 0.f;
+        rows[s * 128 + 64 + r] = in ? D[lrow + q0 + r] : 0.f;
+      }
+      hopper::mbar_arrive(&full[s]);
+    }
+  } else {
+    // consumer warpgroups: wg takes the pairs n = wg, wg + 2, ...; both own
+    // the tile's 64 key rows: rows kr and kr + 8 of the accumulators,
+    // columns (q rows) 8i + 2t, 8i + 2t + 1
+    const int wg = warp / 4;
+    const int t = lane % 4;
+    const int kr = k0 + (warp % 4) * 16 + lane / 4;
+    const float sl2 = a.sm_scale * LOG2E;
+    float dk_acc[HDP / 2], dv_acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    hopper::mbar_wait(kvbar, 0);
+    for (int n = wg; n < npairs; n += 2) {
+      const int s = n % ST;
+      const int q0 = (qt_begin + n % nq) * 64;
+      const uint8_t* qd = ring + s * 2 * C::TILE;
+      const uint8_t* dod = qd + C::TILE;
+      hopper::mbar_wait(&full[s], (n / ST) & 1);
+
+      float st[32], dpt[32];
+      hopper::wgmma_fence();
+      tile_nt<HDP>(st, Ks, qd);              // S^T = K Q^T
+      tile_nt<HDP>(dpt, Vs, dod);            // dP^T = V dO^T
+      hopper::wgmma_commit();
+      const float* lc = rows + s * 128;      // by column (q row)
+      const float* dc = lc + 64;
+      hopper::wgmma_wait();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      const bool edge = q0 + 64 > a.Sq || k0 + 64 > a.Sk ||
+                        (a.causal && k0 + 63 > q0) ||
+                        (a.window > 0 && q0 + 63 - k0 >= a.window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 8 * i + 2 * t + (j & 1);
+          float p = exp2f(st[4 * i + j] * sl2 - lc[c]);
+          if (edge && !visible(q0 + c, kr + (j >> 1) * 8, a)) p = 0.f;
+          st[4 * i + j] = p;
+          dpt[4 * i + j] = p * (dpt[4 * i + j] - dc[c]);
+        }
+      uint32_t pf[4][4], df[4][4];
+      hopper::to_a_frags<64>(st, pf);
+      hopper::to_a_frags<64>(dpt, df);
+      hopper::wgmma_fence();
+      tile_nn(dv_acc, pf, dod);              // dV += P^T dO
+      tile_nn(dk_acc, df, qd);               // dK += dS^T Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // warpgroup 1 hands its sums to warpgroup 0 through the ring, free once
+    // both are done: a fixed order, so the result is deterministic
+    float* red = reinterpret_cast<float*>(ring);
+    const int tid = threadIdx.x % 128;
+    hopper::bar_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) {
+        red[i * 128 + tid] = dk_acc[i];
+        red[(HDP / 2 + i) * 128 + tid] = dv_acc[i];
+      }
+    }
+    hopper::bar_sync(1, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) {
+        dk_acc[i] += red[i * 128 + tid];
+        dv_acc[i] += red[(HDP / 2 + i) * 128 + tid];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kpos = kr + 8 * r;
+        if (kpos >= a.Sk) continue;
+        __nv_bfloat16* dkr = dk + b * a.dks.b + kh * a.dks.h +
+                             (long long)kpos * a.dks.s;
+        __nv_bfloat16* dvr = dv + b * a.dvs.b + kh * a.dvs.h +
+                             (long long)kpos * a.dvs.s;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * i + 2 * t) =
+              __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * a.sm_scale,
+                                    dk_acc[4 * i + 2 * r + 1] * a.sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * i + 2 * t) =
+              __floats2bfloat162_rn(dv_acc[4 * i + 2 * r],
+                                    dv_acc[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(160, 2)
+fa_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __grid_constant__ CUtensorMap dmap,
+            const float* __restrict__ lse, const float* __restrict__ D,
+            __nv_bfloat16* __restrict__ dq, Args a) {
+  using C = Bwd<HD>;
+  constexpr int HDP = C::HDP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;
+  uint8_t* dOs = sm + C::TILE;
+  uint8_t* ring = sm + 2 * C::TILE;        // stage s: K, then V
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + C::Q_TILES);
+  uint64_t* qbar = bar;
+  uint64_t* full = bar + 1;                // [2]
+  uint64_t* empty = bar + 3;               // [2]
+
+  // a 1-D grid, q tile slowest and last first (the causally longest)
+  const int nqt = (a.Sq + 63) / 64;
+  const int per_tile = (int)gridDim.x / nqt;                   // H * B
+  const int q0 = (nqt - 1 - (int)blockIdx.x / per_tile) * 64;
+  const int h = (int)blockIdx.x % per_tile % a.H;
+  const int b = (int)blockIdx.x % per_tile / a.H;
+  const int kh = h / (a.H / a.Kh);
+  // the forward's key-tile range for this q tile
+  int kt_end = (a.Sk + 63) / 64;
+  if (a.causal) kt_end = min(kt_end, (min(q0 + 64, a.Sq) - 1) / 64 + 1);
+  int kt_begin = 0;
+  if (a.window > 0 && q0 - a.window + 1 > 0)
+    kt_begin = (q0 - a.window + 1) / 64;
+  const int ntiles = kt_end - kt_begin;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                         // producer
+    if (lane == 0) {
+      hopper::mbar_expect_tx(qbar, 2 * C::TILE);
+      load_rows<C::PANELS>(Qs, &qmap, h, q0, b, qbar);
+      load_rows<C::PANELS>(dOs, &dmap, h, q0, b, qbar);
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n & 1;
+        hopper::mbar_wait(&empty[s], ((n >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * C::TILE);
+        uint8_t* kd = ring + s * 2 * C::TILE;
+        const int k0 = (kt_begin + n) * 64;
+        load_rows<C::PANELS>(kd, &kmap, kh, k0, b, &full[s]);
+        load_rows<C::PANELS>(kd + C::TILE, &vmap, kh, k0, b, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: q rows qr and qr + 8, key columns 8i + 2t (+1)
+  const int t = lane % 4;
+  const int qr = q0 + warp * 16 + lane / 4;
+  const float sl2 = a.sm_scale * LOG2E;
+  const long long lrow = ((long long)b * a.H + h) * a.Sq;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qr + 8 * r < a.Sq;
+    lr[r] = in ? lse[lrow + qr + 8 * r] * LOG2E : 0.f;
+    dr[r] = in ? D[lrow + qr + 8 * r] : 0.f;
+  }
+  float dq_acc[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) dq_acc[i] = 0.f;
+
+  hopper::mbar_wait(qbar, 0);
+  for (int n = 0; n < ntiles; ++n) {
+    const int s = n & 1;
+    const int k0 = (kt_begin + n) * 64;
+    const uint8_t* kd = ring + s * 2 * C::TILE;
+    const uint8_t* vd = kd + C::TILE;
+    hopper::mbar_wait(&full[s], (n >> 1) & 1);
+
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+    tile_nt<HDP>(sc, Qs, kd);              // S = Q K^T
+    tile_nt<HDP>(dp, dOs, vd);             // dP = dO V^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    const bool edge = q0 + 64 > a.Sq || k0 + 64 > a.Sk ||
+                      (a.causal && k0 + 63 > q0) ||
+                      (a.window > 0 && q0 + 63 - k0 >= a.window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = exp2f(sc[4 * i + j] * sl2 - lr[j >> 1]);
+        if (edge && !visible(qr + (j >> 1) * 8, k0 + 8 * i + 2 * t + (j & 1),
+                             a))
+          p = 0.f;
+        sc[4 * i + j] = p * (dp[4 * i + j] - dr[j >> 1]);   // dS
+      }
+    uint32_t df[4][4];
+    hopper::to_a_frags<64>(sc, df);
+    hopper::wgmma_fence();
+    tile_nn(dq_acc, df, kd);               // dQ += dS K
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
+    hopper::fence_regs(dq_acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qr + 8 * r;
+    if (qpos >= a.Sq) continue;
+    __nv_bfloat16* dqr = dq + b * a.dqs.b + h * a.dqs.h +
+                         (long long)qpos * a.dqs.s;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(dq_acc[4 * i + 2 * r] * a.sm_scale,
+                                dq_acc[4 * i + 2 * r + 1] * a.sm_scale);
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* D, void* dq,
+                 void* dk, void* dv, const Args& a, cudaStream_t stream) {
+  using C = Bwd<HD>;
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  bwd_dot<__nv_bfloat16><<<(unsigned)((rows * 32 + 255) / 256), 256, 0,
+                           stream>>>((const __nv_bfloat16*)o,
+                                     (const __nv_bfloat16*)dout, D, HD, a);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+
+  CUtensorMap qm, km, vm, dm;
+  if ((err = hopper::make_map(&qm, q, a.B, a.H, a.Sq, HD, a.qs.b, a.qs.h,
+                              a.qs.s, 64)) ||
+      (err = hopper::make_map(&km, k, a.B, a.Kh, a.Sk, HD, a.ks.b, a.ks.h,
+                              a.ks.s, 64)) ||
+      (err = hopper::make_map(&vm, v, a.B, a.Kh, a.Sk, HD, a.vs.b, a.vs.h,
+                              a.vs.s, 64)) ||
+      (err = hopper::make_map(&dm, dout, a.B, a.H, a.Sq, HD, a.dos.b,
+                              a.dos.h, a.dos.s, 64)))
+    return err;
+
+  if ((err = set_smem(fa_dkdv_wgmma<HD>, C::KV_SMEM))) return err;
+  const unsigned grid_kv = (unsigned)((a.Sk + 63) / 64) * a.Kh * a.B;
+  fa_dkdv_wgmma<HD><<<grid_kv, C::KV_THREADS, C::KV_SMEM, stream>>>(
+      qm, km, vm, dm, lse, D, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  if ((err = set_smem(fa_dq_wgmma<HD>, C::Q_SMEM))) return err;
+  const unsigned grid_q = (unsigned)((a.Sq + 63) / 64) * a.H * a.B;
+  fa_dq_wgmma<HD><<<grid_q, C::Q_THREADS, C::Q_SMEM, stream>>>(
+      qm, km, vm, dm, lse, D, (__nv_bfloat16*)dq, a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* D, void* dq, void* dk,
@@ -419,21 +861,51 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+int launch_bf16(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* D, void* dq, void* dk,
+           void* dv, int B, int H, int Kh, int Sq, int Sk, int hd,
+           const long long* st, float sm_scale, int causal, int window,
+           cudaStream_t stream) {
+  if (B <= 0 || Kh <= 0 || H % Kh != 0 || Sq <= 0 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.B = B; a.H = H; a.Kh = Kh; a.Sq = Sq; a.Sk = Sk;
+  Strides* all[8] = {&a.qs, &a.ks, &a.vs, &a.os, &a.dos, &a.dqs, &a.dks,
+                     &a.dvs};
+  for (int i = 0; i < 8; ++i) *all[i] = Strides{st[3 * i], st[3 * i + 1],
+                                                st[3 * i + 2]};
+  a.sm_scale = sm_scale; a.causal = causal; a.window = window;
+  switch (hd) {
+    case 16:
+      return launch_wgmma<16>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    case 32:
+      return launch_wgmma<32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    case 112:
+      return launch_wgmma<112>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // strides: 24 int64 element strides, (batch, head, seq) for q, k, v, o,
 // dout, dq, dk, dv; lse and D (scratch): (B, H, Sq) f32 contiguous
-#define BWD_ENTRY(NAME, T)                                                    \
+#define BWD_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* o, const void* dout, const float* lse,     \
                       float* D, void* dq, void* dk, void* dv, int B, int H,  \
                       int Kh, int Sq, int Sk, int hd,                        \
                       const long long* strides, float sm_scale, int causal,  \
                       int window, void* stream) {                            \
-    return launch<T>(q, k, v, o, dout, lse, D, dq, dk, dv, B, H, Kh, Sq, Sk, \
-                     hd, strides, sm_scale, causal, window,                  \
-                     (cudaStream_t)stream);                                  \
+    return LAUNCH(q, k, v, o, dout, lse, D, dq, dk, dv, B, H, Kh, Sq, Sk,    \
+                  hd, strides, sm_scale, causal, window,                     \
+                  (cudaStream_t)stream);                                     \
   }
 
-BWD_ENTRY(flash_attention_bwd_f32, float)
-BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16)
+BWD_ENTRY(flash_attention_bwd_f32, launch<float>)
+BWD_ENTRY(flash_attention_bwd_bf16, launch_bf16)

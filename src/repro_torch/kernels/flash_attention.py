@@ -7,21 +7,28 @@ is the JAX kernel's: q ``(B, H, Sq, hd)``, k/v ``(B, Kh, Sk, hd)``, head
 
 ``flash_attention`` takes the plain version only for CPU tensors; a CUDA
 tensor goes to the hand-written kernel ``csrc/flash_attention.cu`` or
-raises. The kernel reads q, k, v through element strides of their three
-outer dims (last dim contiguous), so callers pass transposed views of
-``(B, S, H, hd)`` projections without copying; the output it returns is
-a ``(B, H, Sq, hd)`` view of a ``(B, Sq, H, hd)`` buffer, so the model's
-head merge after it is free. Unlike the Pallas kernel, any Sq and Sk work
-(ragged tails are masked, not asserted).
+raises. The dispatch is by dtype: bf16 (every main path) runs on the
+tensor cores (``wgmma``, tiles brought by the Tensor Memory Accelerator),
+f32 (reference checks, held to 1e-4) on the CUDA cores. The kernel reads
+q, k, v through element strides of their three outer dims (last dim
+contiguous), so callers pass transposed views of ``(B, S, H, hd)``
+projections without copying; for bf16 the TMA also needs a 16-byte-aligned
+base and every outer stride a multiple of 16 bytes, which
+``_tma_layout_ok`` checks (a layout that fails raises, it is never
+copied). The output it returns is a ``(B, H, Sq, hd)`` view of a
+``(B, Sq, H, hd)`` buffer, so the model's head merge after it is free.
+Unlike the Pallas kernel, any Sq and Sk work (ragged tails are masked, not
+asserted).
 
 Training: where autograd needs a gradient of a CUDA tensor,
 ``flash_attention`` goes through ``FlashAttentionFn``. Its forward runs
-the same kernel and also keeps each row's log-sum-exp; its backward is
-``flash_attention_bwd``, the hand-written kernel
-``csrc/flash_attention_bwd.cu``, which recomputes P from that LSE. A CPU
-tensor keeps the plain ``attention_ref``, which autograd differentiates
-(``attention_bwd_ref`` is that gradient as a function). Each wrapper
-counts its own launches; a recomputed forward (remat) counts again.
+the same kernel and also keeps each row's log-sum-exp (``attention_lse_ref``
+is its plain version); its backward is ``flash_attention_bwd``, the
+hand-written kernel ``csrc/flash_attention_bwd.cu``, which recomputes P
+from that LSE. A CPU tensor keeps the plain ``attention_ref``, which
+autograd differentiates (``attention_bwd_ref`` is that gradient as a
+function). Each wrapper counts its own launches, one a call whatever the
+number of CUDA launches inside; a recomputed forward (remat) counts again.
 """
 from __future__ import annotations
 
@@ -37,16 +44,11 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
-                  sliding_window: Optional[int] = None) -> torch.Tensor:
-    """Plain version: the full softmax in f32. q: (B,H,Sq,hd);
-    k/v: (B,Kh,Sk,hd) -> (B,H,Sq,hd) in q's dtype."""
+def _masked_scores(q, k, causal, sliding_window):
+    """f32 scores q k^T / sqrt(hd) with masked keys at ``NEG_INF``."""
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
-    g = H // Kh
-    kr = k.repeat_interleave(g, dim=1).float()
-    vr = v.repeat_interleave(g, dim=1).float()
+    kr = k.repeat_interleave(H // Kh, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) / math.sqrt(hd)
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -55,8 +57,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = mask & (kpos <= qpos)
     if sliding_window is not None:
         mask = mask & (qpos - kpos < sliding_window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True,
+                      sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the forward's saved log-sum-exp: each row's
+    natural-log sum of exp over its masked scores, (B, H, Sq) f32. Used
+    by tests and ``chip_smoke.py``, not by the main path."""
+    return torch.logsumexp(_masked_scores(q, k, causal, sliding_window),
+                           dim=-1)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Plain version: the full softmax in f32. q: (B,H,Sq,hd);
+    k/v: (B,Kh,Sk,hd) -> (B,H,Sq,hd) in q's dtype."""
+    vr = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    w = torch.softmax(_masked_scores(q, k, causal, sliding_window), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, vr).to(q.dtype)
 
 
@@ -99,6 +119,17 @@ def _kernel(name: str, dtype: torch.dtype):
     return _fns[name][dtype]
 
 
+def _tma_layout_ok(shape, strides, data_ptr: int, itemsize: int) -> bool:
+    """Whether the Tensor Memory Accelerator can read a tensor of this
+    layout: a 16-byte-aligned base and, for every outer dim of more than
+    one element, a stride of a multiple of 16 bytes (a dim of size 1 is
+    never stepped along). The last dim must be contiguous."""
+    if strides[-1] != 1 or data_ptr % 16:
+        return False
+    return all(n == 1 or (st * itemsize) % 16 == 0
+               for n, st in zip(shape[:-1], strides[:-1]))
+
+
 def _check(name, tensors, q, k):
     """Device, dtype and shape checks shared by both CUDA wrappers."""
     B, H, Sq, hd = q.shape
@@ -119,6 +150,15 @@ def _check(name, tensors, q, k):
                          f"{', '.join(str(tuple(t.shape)) for t in tensors)}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for t in tensors:
+            if not _tma_layout_ok(t.shape, t.stride(), t.data_ptr(),
+                                  t.element_size()):
+                raise ValueError(
+                    f"{name}: the bf16 kernel reads through TMA, which needs "
+                    f"a 16-byte-aligned base and every outer stride a "
+                    f"multiple of 16 bytes; got strides {t.stride()} at "
+                    f"address {t.data_ptr():#x}")
 
 
 def _forward(q, k, v, causal, sliding_window, want_lse):

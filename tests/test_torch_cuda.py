@@ -84,6 +84,13 @@ def _to(tree, device):
     (1, 6, 2, 70, 64, None, False),     # not causal
     (2, 32, 32, 70, 112, None, True),   # zamba2's shared block, hd 112
     (1, 32, 32, 200, 112, 64, True),    # hd 112 with a window
+    # the bf16 kernel's 128-row q tiles and 128-key tiles: their edges
+    (2, 9, 3, 127, 64, None, True),
+    (2, 9, 3, 128, 64, None, True),
+    (2, 9, 3, 129, 64, None, True),
+    (1, 9, 3, 1000, 64, None, True),
+    (2, 32, 32, 1, 112, None, True),
+    (1, 32, 32, 129, 112, None, True),
 ])
 def test_flash_attention_matches_plain(B, H, Kh, S, hd, win, causal, dtype):
     gen = torch.Generator("cuda").manual_seed(S)
@@ -145,10 +152,40 @@ def test_flash_decode_matches_plain(B, H, Kh, W, hd, aligned, dtype):
     assert _err(got, FD.decode_ref(q, k, v, valid)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,S,hd,win,causal", [
+    (2, 9, 3, 129, 64, None, True),     # smollm heads, past one q tile
+    (1, 32, 32, 200, 112, 64, True),    # zamba2's hd 112, a window
+    (1, 4, 2, 70, 16, None, False),     # hd 16, not causal
+])
+def test_flash_attention_lse_matches_plain(B, H, Kh, S, hd, win, causal,
+                                           dtype):
+    """The per-row log-sum-exp the forward keeps for the backward
+    (natural log) against ``attention_lse_ref``: 1e-3 in bf16, 1e-5 in
+    f32 (the same scores, summed in another order)."""
+    gen = torch.Generator("cuda").manual_seed(S + hd)
+    q = _randn(gen, (B, S, H, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, S, Kh, hd), dtype).transpose(1, 2)
+    out, lse = FA._forward(q, k, v, causal, win, want_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    want = FA.attention_lse_ref(q, k, causal=causal, sliding_window=win)
+    assert _err(lse, want) <= {torch.bfloat16: 1e-3,
+                               torch.float32: 1e-5}[dtype]
+    assert _err(out, FA.attention_ref(q, k, v, causal=causal,
+                                      sliding_window=win)) <= TOL[dtype]
+
+
 def test_kernels_reject_what_they_cannot_take():
     q = torch.zeros((1, 4, 8, 48), device="cuda")        # hd 48
     kv = torch.zeros((1, 2, 8, 48), device="cuda")
     with pytest.raises(ValueError, match="shapes"):
+        FA.flash_attention(q, kv, kv)
+    # bf16 reads through TMA: a base one element (2 bytes) off 16 bytes
+    buf = torch.zeros((1 + 4 * 8 * 64,), dtype=torch.bfloat16, device="cuda")
+    q = buf[1:].view(1, 4, 8, 64)
+    kv = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
         FA.flash_attention(q, kv, kv)
     q = torch.zeros((1, 4, 64), device="cuda")
     kv = torch.zeros((1, 2, 8, 64), device="cuda")
@@ -536,6 +573,8 @@ def test_launch_serve_cli_xlstm_on_card(capsys):
     (2, 4, 4, 65, 16, None),            # hd 16, no grouping
     (1, 16, 2, 90, 32, 33),             # g = 8
     (1, 32, 32, 130, 112, None),        # hd 112 (zamba2's shared block)
+    (2, 9, 3, 129, 64, None),           # past two 64-row tiles
+    (1, 9, 3, 1024, 64, None),          # the train cell's length
 ])
 def test_flash_attention_backward_matches_plain(B, H, Kh, S, hd, win,
                                                 dtype):
@@ -560,6 +599,22 @@ def test_flash_attention_backward_matches_plain(B, H, Kh, S, hd, win,
         assert g.dtype == dtype and g.stride() == x.stride()
         assert _err(g, w) <= TOL[dtype] * max(1.0, w.float().abs().max()
                                               .item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_attention_backward_is_deterministic(dtype):
+    """Three launches and no atomics: two backward runs on the same
+    inputs give bitwise equal gradients."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    q = _randn(gen, (2, 300, 9, 64), dtype).transpose(1, 2)
+    k = _randn(gen, (2, 300, 3, 64), dtype).transpose(1, 2)
+    v = _randn(gen, (2, 300, 3, 64), dtype).transpose(1, 2)
+    do = _randn(gen, (2, 300, 9, 64), dtype).transpose(1, 2)
+    out, lse = FA._forward(q, k, v, True, None, want_lse=True)
+    first = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    again = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("op", ["add", "copy"])

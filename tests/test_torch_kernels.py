@@ -43,6 +43,7 @@ def _no_launches():
     (2, 4, 2, 512, 32, 128),           # GQA + sliding window
     (1, 2, 1, 128, 128, None),         # head_dim 128
     (2, 9, 3, 128, 64, None),          # smollm: GQA 3:1
+    (1, 4, 4, 256, 112, None),         # zamba2's shared block: hd 112
 ])
 def test_flash_attention_plain_vs_pallas_and_ref(B, H, Kh, S, hd, win):
     rng = np.random.default_rng(0)
@@ -87,6 +88,74 @@ def test_flash_attention_strided_views_take_the_model_layout():
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _lse_f64(q, k, causal, win):
+    """Natural-log sum of exp over each row's masked scores, float64."""
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    kr = np.repeat(k.astype(np.float64), H // Kh, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kr) / np.sqrt(hd)
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), dtype=bool)
+    if causal:
+        mask &= kpos <= qpos
+    if win is not None:
+        mask &= qpos - kpos < win
+    s = np.where(mask, s, FA.NEG_INF)
+    m = s.max(axis=-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,hd,win,causal", [
+    (2, 4, 4, 64, 64, 64, None, True),     # causal
+    (1, 9, 3, 100, 100, 64, 5, True),      # GQA 3:1, sliding window
+    (2, 8, 2, 7, 7, 32, None, True),       # ragged, GQA 4:1
+    (1, 4, 1, 33, 50, 112, None, False),   # Sq != Sk, not causal, hd 112
+])
+def test_attention_lse_ref_vs_float64(B, H, Kh, Sq, Sk, hd, win, causal):
+    """The plain version of the LSE the forward kernel saves for the
+    backward: natural log, masked keys as the kernel masks them."""
+    rng = np.random.default_rng(Sq + hd)
+    q, k = _np(rng, (B, H, Sq, hd)), _np(rng, (B, Kh, Sk, hd))
+    got = FA.attention_lse_ref(torch.tensor(q), torch.tensor(k),
+                               causal=causal, sliding_window=win)
+    assert got.shape == (B, H, Sq) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _lse_f64(q, k, causal, win),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _bf16_view(shape, perm=None, offset=0):
+    """A bf16 CPU tensor of ``shape``, viewed through ``perm`` and
+    ``offset`` elements into its buffer."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    t = buf[offset:offset + n].view(shape)
+    return t.permute(*perm) if perm else t
+
+
+@pytest.mark.parametrize("case,ok", [
+    # smollm's (B, S, 9, 64) and (B, S, 3, 64) projections as (B,H,S,hd)
+    (lambda: _bf16_view((4, 1024, 9, 64), (0, 2, 1, 3)), True),
+    (lambda: _bf16_view((4, 1024, 3, 64), (0, 2, 1, 3)), True),
+    # zamba2's (B, S, 32, 112) shared-block projections
+    (lambda: _bf16_view((2, 2048, 32, 112), (0, 2, 1, 3)), True),
+    (lambda: _bf16_view((2, 9, 100, 64)), True),           # contiguous
+    (lambda: _bf16_view((1, 4, 1, 16)), True),              # one token
+    # a base one element (2 bytes) off 16 bytes
+    (lambda: _bf16_view((2, 9, 100, 64), offset=1), False),
+    # a row stride of 68 elements: 136 bytes, not a multiple of 16
+    (lambda: _bf16_view((2, 100, 3, 68), (0, 2, 1, 3))[..., :64], False),
+    # the last dim not contiguous
+    (lambda: _bf16_view((2, 64, 9, 100), (0, 2, 3, 1)), False),
+], ids=["smollm-q", "smollm-kv", "zamba2", "contiguous", "one-token",
+        "base-off-16", "stride-not-16", "last-dim-strided"])
+def test_tma_layout_check(case, ok):
+    """The bf16 kernels read through TMA; the wrapper's pure layout check
+    takes what the models pass and refuses what TMA cannot read."""
+    t = case()
+    assert FA._tma_layout_ok(t.shape, t.stride(), t.data_ptr(),
+                             t.element_size()) is ok
 
 
 def _decode_inputs(B, H, Kh, W, hd, seed, all_invalid_row=False):
