@@ -7,58 +7,111 @@
 // invalid slot scores the finite -1e30 (so a row with no valid slot
 // returns the mean of v, never NaN), output divided by max(l, 1e-30).
 //
-// Bound on the card: bytes. Every K and V row of the cache is read once
-// (2*B*W*Kh*hd elements) against ~4*B*H*W*hd flops, about one flop per
-// byte, far below the H100's ~295 flop/byte ridge.
+// Bound on the card: bytes. Each valid slot's K and V rows are read once
+// (2*Kh*hd elements a slot) against ~4*H*hd flops a slot, about one flop
+// per byte, far below the H100's ~295 flop/byte ridge. So the design
+// moves as few bytes as it can and keeps enough of them in flight.
 //
-// Design: split-K, the GPU shape the TPU kernel dropped (its KV split is
-// a sequential grid dimension carrying (acc, m, l) in VMEM). A decode
-// step has only B*Kh (batch row, KV head) pairs, 24 at batch 8 for
-// smollm, far fewer than the 132 SMs, so the cache is cut along W into
-// TILE-key splits and every (pair, split) gets its own block:
-//   1. decode_partial: one block per (b, kv head, split) serves the g
-//      query heads of that KV head, so each K/V row crosses from device
-//      memory once. The split's K/V rows are staged in shared memory as
-//      f32 with 16-byte vector loads; each thread scores (head, key)
-//      pairs; warp w owns query heads w, w+4, ... and writes their
-//      split-local softmax state (max m, sum l, unnormalised acc).
-//   2. decode_merge: one block per (b, query head) merges the splits'
-//      states with the log-sum-exp rule into the output.
-// Any W works: keys past W score -inf and weigh nothing, while in-range
-// invalid keys keep the reference's -1e30, so a split (or a whole row)
-// with no valid key merges to exactly the reference's uniform weights.
+// Design: one launch, split-K over the cache with the merge inside it.
+//  - The grid is (splits, B * Kh): one thread-block cluster of `splits`
+//    blocks per (batch row, KV head) pair, each block a contiguous range
+//    of 64-key tiles. Splits are a power of two, at most 8 (the portable
+//    cluster size) and at most the tile count, chosen so that at least
+//    132 blocks (one an SM) run where W allows: smollm's 24 pairs at W
+//    1024 take 8 splits, zamba2's 128 pairs at W 256 take 2, two tiles
+//    each. (More splits, 264 blocks and more, ran slower at zamba2's
+//    shape: more merging for the same bytes; so did 128-key tiles over 8
+//    warps, which at f32 and hd 112 would also need 237 KB of shared
+//    memory; tools/decode_scan_variants.py.)
+//  - Each block first reads the row's whole validity mask (W ints, from
+//    L2, in the same round trip as q) and flags which 32-key groups of
+//    its tiles hold a valid key (a warp ballot each). A group with none
+//    contributes exactly nothing to a row that has a valid key elsewhere
+//    (its weight exp(-1e30 - m) is 0), so a tile with no valid key is
+//    not read at all. (Also zero-filling, rather than reading, the empty
+//    32-key half of a tile that is read measured the same at both main
+//    path shapes: tools/decode_scan_variants.py.) A row with no valid
+//    key at all (an empty serve slot) is the one case that reads every
+//    slot: each then scores -1e30, and the merge returns the mean of v
+//    over all W, as the reference does.
+//  - The tiles stream into bf16 (or f32) shared memory through cp.async,
+//    16 bytes a thread, through a ring of two (K, V) tile pairs: the next
+//    tile to read is in flight while one is used (a block with one tile
+//    issues no second load). Nothing is widened to f32 in shared memory.
+//    Views whose rows are not 16-byte aligned (the layout decides, never
+//    a failure) take a scalar copy instead.
+//  - Keys, not heads, are split across the 4 warps: each warp takes 16
+//    keys of a tile and keeps its own online softmax (m, l, acc), so no
+//    block barrier sits inside the softmax. A pair of lanes scores one
+//    key, half of hd each, for every query head of the group (one K row
+//    read serves g heads); P V gives each lane 1-4 output dims of every
+//    head. Heads are bucketed (g = 1 for zamba2, up to 3 for smollm, up
+//    to 16 for any other group) and a bucket's spare heads are computed
+//    on zeros rather than branched around.
+//  - The four warps' states merge in shared memory in warp order; then
+//    every block of the cluster merges the blocks' states through
+//    distributed shared memory in rank order, each block writing a share
+//    of the outputs. No scratch tensor, no atomics: two runs are bitwise
+//    equal, and so are any two layouts of the same cache.
+// ptxas (sm_90a): bf16 hd 64 at g 3 (smollm) 96 registers and 12 bytes
+// spilled, hd 112 at g 1 (zamba2) 90 registers, no spill; chip_smoke.py
+// writes every instantiation's report to chiprun_out/ptxas.txt.
+// Any W works: keys past W score -inf and their rows are zero-filled.
 // K and V are read through element strides (last dim contiguous): the
 // model's (B, W, Kh, hd) cache goes in as a permuted view, never copied.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int TILE = 64;      // keys per split (one shared-memory tile)
-constexpr int THREADS = 128;  // 4 warps
+constexpr int TILE = 64;          // keys a tile
+constexpr int THREADS = 128;      // 4 warps
+constexpr int QUARTERS = TILE / 32;  // 32-key groups a tile
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_G = 16;     // query heads per KV head
-constexpr int HEADS_PER_WARP = (MAX_G + NWARPS - 1) / NWARPS;
-constexpr float NEG_INF = -1e30f;
+constexpr int KPW = TILE / NWARPS;  // keys a warp takes of each tile
+constexpr int MAX_G = 16;         // query heads per KV head
+constexpr int MAX_SPLIT = 8;      // blocks in a cluster (portable limit)
+constexpr int MIN_BLOCKS = 132;   // a block on each of 132 SMs
+constexpr float NEG_BIG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// N consecutive elements at p (aligned to their size) as f32
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
+  if constexpr (sizeof(T) * N == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const T* x = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_f32(x[i]);
+  } else if constexpr (sizeof(T) * N == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const T* x = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_f32(x[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_f32(p[i]);
+  }
 }
 
 struct Args {
@@ -67,167 +120,369 @@ struct Args {
   const void* v;
   const int* valid;
   void* out;
-  float* part_ml;    // [B*Kh*nsplit][g][2]: split-local max, sum
-  float* part_acc;   // [B*Kh*nsplit][g][hd]: split-local unnormalised P.V
-  int Kh, W, g, nsplit;
+  int Kh, W, g, nsplit, vec;
   long long qsb, qsh, ksb, ksh, ksw, vsb, vsh, vsw, valsb, osb, osh;
   float sm_scale;
 };
 
-// Stage rows [w0, w0 + n) of one K or V head into shared memory as f32.
-template <typename T, int HD, bool VEC>
-__device__ __forceinline__ void stage(float* dst, int dst_stride,
-                                      const T* src, long long sw, int n) {
-  if constexpr (VEC) {
-    constexpr int PER = 16 / sizeof(T);       // elements per 16-byte load
-    constexpr int CHUNKS = HD / PER;
-    for (int e = threadIdx.x; e < TILE * CHUNKS; e += THREADS) {
-      const int j = e / CHUNKS, c = e % CHUNKS;
-      float* d = dst + j * dst_stride + c * PER;
-      if (j < n) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + j * sw + c * PER);
-        const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int i = 0; i < PER; ++i) d[i] = to_f32(x[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < PER; ++i) d[i] = 0.f;
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
-      const int j = e / HD, d = e % HD;
-      dst[j * dst_stride + d] = j < n ? to_f32(src[j * sw + d]) : 0.f;
-    }
+// Shared memory of one block, in this order: q as f32 [G][HD]; each
+// warp's weights [NWARPS][G][KPW]; a flag for each 32-key group of the
+// block's tiles (any valid key); the ring of two (K, V) tile pairs,
+// reused after the loop for the warps' states [NWARPS][G][m, l,
+// acc[HD]]; the block's state [G][m, l, acc[HD]], which the cluster
+// reads.
+template <typename T, int HD, int G>
+struct Smem {
+  static constexpr int VE = 16 / sizeof(T);   // elements a 16-byte chunk
+  static constexpr int KST = HD + VE;         // padded tile row
+  static constexpr size_t HEAD = sizeof(float) * (G * HD + NWARPS * G * KPW);
+  static constexpr size_t WPART = sizeof(float) * NWARPS * G * (HD + 2);
+  static constexpr size_t BPART = sizeof(float) * G * (HD + 2);
+  __host__ __device__ static size_t flags(int tps) {
+    return 16 * (size_t)((QUARTERS * tps + 3) / 4);
   }
-}
+  static constexpr size_t RING = sizeof(T) * 2 * 2 * TILE * KST > WPART
+                                     ? sizeof(T) * 2 * 2 * TILE * KST
+                                     : WPART;
+  __host__ __device__ static size_t total(int tps) {
+    return HEAD + flags(tps) + RING + BPART;
+  }
+};
 
-template <typename T, int HD, bool VEC>
-__global__ void __launch_bounds__(THREADS) decode_partial(Args a) {
-  constexpr int KST = HD + 1;                // padded K row: no bank conflicts
-  constexpr int DPL = (HD + 31) / 32;        // output dims per lane
-  extern __shared__ float smem[];
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(Args a) {
+  using L = Smem<T, HD, G>;
+  constexpr int VE = L::VE, KST = L::KST;
+  constexpr int HALF = HD / 2;                    // dims a lane of a pair
+  constexpr int DPL = HD <= 32 ? 1 : HD <= 64 ? 2 : 4;  // out dims a lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
   const int g = a.g;
-  float* q_s = smem;                         // [g][HD]
-  float* k_s = q_s + g * HD;                 // [TILE][HD + 1]
-  float* v_s = k_s + TILE * KST;             // [TILE][HD]
-  float* p_s = v_s + TILE * HD;              // [g][TILE]
-
-  const int pair = blockIdx.x;               // b * Kh + kh
-  const int split = blockIdx.y;
+  const int rank = blockIdx.x;                    // the cluster spans x
+  const int pair = blockIdx.y;
   const int b = pair / a.Kh, kh = pair % a.Kh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int w0 = split * TILE;
-  const int n = min(TILE, a.W - w0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (a.W + TILE - 1) / TILE;
+  const int tps = (ntiles + a.nsplit - 1) / a.nsplit;
+  const int t0 = rank * ntiles / a.nsplit;
+  const int t1 = (rank + 1) * ntiles / a.nsplit;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb;
-  for (int e = tid; e < g * HD; e += THREADS)
-    q_s[e] = to_f32(q[(kh * g + e / HD) * a.qsh + e % HD]);
-  stage<T, HD, VEC>(k_s, KST, static_cast<const T*>(a.k) + b * a.ksb + kh * a.ksh
-                    + w0 * a.ksw, a.ksw, n);
-  stage<T, HD, VEC>(v_s, HD, static_cast<const T*>(a.v) + b * a.vsb + kh * a.vsh
-                    + w0 * a.vsw, a.vsw, n);
-  __syncthreads();
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* p_s = q_s + G * HD;
+  int* qflag = reinterpret_cast<int*>(smem + L::HEAD);
+  unsigned char* ring = smem + L::HEAD + L::flags(tps);
+  float* bpart = reinterpret_cast<float*>(ring + L::RING);
 
-  const int* valid = a.valid + b * a.valsb + w0;
-  for (int e = tid; e < g * TILE; e += THREADS) {
-    const int h = e / TILE, j = e % TILE;
-    float s = -INFINITY;                      // past W: weighs nothing
-    if (j < n) {
-      const float* qr = q_s + h * HD;
-      const float* kr = k_s + j * KST;
-      float dot = 0.f;
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + kh * g * a.qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kh * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kh * a.vsh;
+  const int* valid = a.valid + b * a.valsb;
+
+  // q and the row's mask in one round trip: every load is issued before
+  // any result is used. The mask says whether the row has a valid key at
+  // all, and (a warp ballot for each 32 keys) which of this block's
+  // 32-key groups hold one. q is zero for the bucket's heads past g.
+  constexpr int QPT = (G * HD + THREADS - 1) / THREADS;
+  constexpr int VPT = 8;                          // mask loads in flight
+  float qv[QPT];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-      s = valid[j] > 0 ? dot * a.sm_scale : NEG_INF;
-    }
-    p_s[h * TILE + j] = s;
+  for (int i = 0; i < QPT; ++i) {
+    const int e = tid + i * THREADS, h = e / HD;
+    qv[i] = e < G * HD && h < g ? to_f32(qb[h * a.qsh + e % HD]) : 0.f;
   }
-  __syncthreads();
-
-  const long long base = (long long)pair * a.nsplit + split;
+  int any = 0;
+  for (int base = 0; base < ntiles * TILE; base += VPT * THREADS) {
+    int v[VPT];
 #pragma unroll
-  for (int i = 0; i < HEADS_PER_WARP; ++i) {
-    const int h = warp + i * NWARPS;
-    if (h >= g) break;
-    float* pr = p_s + h * TILE;
-    float m = -INFINITY;
-    for (int j = lane; j < TILE; j += 32) m = fmaxf(m, pr[j]);
-    m = warp_max(m);                          // finite: n >= 1 in-range key
-    float l = 0.f;
-    for (int j = lane; j < TILE; j += 32) {
-      const float p = expf(pr[j] - m);
-      pr[j] = p;
-      l += p;
+    for (int i = 0; i < VPT; ++i) {
+      const int w = base + i * THREADS + tid;
+      v[i] = w < a.W ? __ldg(valid + w) : 0;
     }
-    l = warp_sum(l);
-    __syncwarp();
-    float* acc = a.part_acc + (base * g + h) * HD;
 #pragma unroll
-    for (int jj = 0; jj < DPL; ++jj) {
-      const int d = lane + 32 * jj;
-      if (d < HD) {
-        float o = 0.f;
-        for (int j = 0; j < n; ++j) o = fmaf(pr[j], v_s[j * HD + d], o);
-        acc[d] = o;
+    for (int i = 0; i < VPT; ++i) {
+      any |= v[i] > 0;
+      const int grp = (base + i * THREADS) / 32 + warp;   // warp-uniform
+      if (grp >= QUARTERS * t0 && grp < QUARTERS * t1) {
+        const unsigned ballot = __ballot_sync(FULL, v[i] > 0);
+        if (lane == 0) qflag[grp - QUARTERS * t0] = ballot != 0u;
       }
     }
-    if (lane == 0) {
-      a.part_ml[(base * g + h) * 2] = m;
-      a.part_ml[(base * g + h) * 2 + 1] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < QPT; ++i)
+    if (tid + i * THREADS < G * HD) q_s[tid + i * THREADS] = qv[i];
+  const int row_any = __syncthreads_or(any);
+  // a 32-key group wanted: every group of a row with no valid key, else
+  // those holding one; the block's tiles to read are those with a group
+  // wanted, in order (every thread walks the flags)
+  auto wanted = [&](int grp) { return !row_any || qflag[grp]; };
+  const int ntl = t1 - t0;
+  auto next_tile = [&](int tl) {
+    for (; tl < ntl; ++tl)
+      for (int q = 0; q < QUARTERS; ++q)
+        if (wanted(QUARTERS * tl + q)) return tl;
+    return tl;
+  };
+
+  // rows [w0, w0 + 64) of K and V, local tile tl, into ring stage `st`;
+  // rows past W are zero-filled, which reads nothing from device memory
+  auto load = [&](int tl, int st) {
+    T* ks = reinterpret_cast<T*>(ring) + (size_t)st * 2 * TILE * KST;
+    T* vs = ks + TILE * KST;
+    const int w0 = (t0 + tl) * TILE, n = min(TILE, a.W - w0);
+    if (a.vec) {
+      constexpr int CH = HD / VE;
+      for (int e = tid; e < TILE * CH; e += THREADS) {
+        const int j = e / CH, c = e % CH;
+        const bool ok = j < n;
+        const long long row = ok ? w0 + j : 0;
+        hopper::cp_async16(ks + j * KST + c * VE, kb + row * a.ksw + c * VE,
+                   ok ? 16 : 0);
+        hopper::cp_async16(vs + j * KST + c * VE, vb + row * a.vsw + c * VE,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < TILE * HD; e += THREADS) {
+        const int j = e / HD, d = e % HD;
+        const bool ok = j < n;
+        const long long row = w0 + j;
+        ks[j * KST + d] = ok ? kb[row * a.ksw + d] : from_f32<T>(0.f);
+        vs[j * KST + d] = ok ? vb[row * a.vsw + d] : from_f32<T>(0.f);
+      }
+    }
+  };
+
+  float m[G], l[G], acc[G][DPL];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[h][e] = 0.f;
+  }
+  const int jl = lane >> 1, half = lane & 1;
+  const int d0 = lane * DPL;
+  float* pw = p_s + warp * G * KPW;
+
+  int cur = next_tile(0);
+  int nxt = cur < ntl ? next_tile(cur + 1) : ntl;
+  if (cur < ntl) load(cur, 0);
+  hopper::cp_async_commit();
+  for (int i = 0; cur < ntl; ++i) {
+    const int st = i & 1;
+    if (nxt < ntl) load(nxt, st ^ 1);   // none past the last: an empty group
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();         // the current tile is in
+    __syncthreads();
+    const T* ks = reinterpret_cast<const T*>(ring) + (size_t)st * 2 * TILE * KST;
+    const T* vs = ks + TILE * KST;
+
+    // scores: lanes (2j, 2j+1) hold key j of this warp's 16, half of hd
+    // each, for every head of the group
+    const int j = warp * KPW + jl;
+    const int kidx = (t0 + cur) * TILE + j;
+    float s[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) s[h] = 0.f;
+    const T* kr = ks + j * KST + half * HALF;
+    const float* qh = q_s + half * HALF;
+#pragma unroll
+    for (int c = 0; c < HALF; c += VE) {
+      float kf[VE];
+      load_f32<T, VE>(kr + c, kf);
+#pragma unroll
+      for (int h = 0; h < G; ++h)
+#pragma unroll
+        for (int e = 0; e < VE; e += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qh + h * HD + c + e);
+          s[h] = fmaf(qq.x, kf[e], s[h]);
+          s[h] = fmaf(qq.y, kf[e + 1], s[h]);
+          s[h] = fmaf(qq.z, kf[e + 2], s[h]);
+          s[h] = fmaf(qq.w, kf[e + 3], s[h]);
+        }
+    }
+    const bool in_range = kidx < a.W;
+    const bool ok = in_range && __ldg(valid + kidx) > 0;
+    const float masked = in_range && !row_any ? NEG_BIG : -INFINITY;
+
+    // this warp's online softmax over its 16 keys, every head of the
+    // bucket at once (no branch: a head past g scores 0 and is unused)
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const float x = s[h] + __shfl_xor_sync(FULL, s[h], 1);
+      const float sc = ok ? x * a.sm_scale : masked;
+      float mt = sc;
+#pragma unroll
+      for (int o = 16; o >= 2; o >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, o));
+      const float mn = fmaxf(m[h], mt);         // -inf: no key yet
+      const float alpha = m[h] == -INFINITY ? 0.f : __expf(m[h] - mn);
+      const float p = sc == -INFINITY ? 0.f : __expf(sc - mn);
+      float ps = half == 0 ? p : 0.f;
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        ps += __shfl_xor_sync(FULL, ps, o);
+      l[h] = fmaf(l[h], alpha, ps);
+      m[h] = mn;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[h][e] *= alpha;
+      if (half == 0) pw[h * KPW + jl] = p;
+    }
+    __syncwarp();
+    // P V: each lane DPL dims of every head over the warp's 16 keys
+    if (d0 < HD) {
+#pragma unroll
+      for (int j4 = 0; j4 < KPW; j4 += 4) {
+        float4 pv[G];               // the weights of 4 keys, every head
+#pragma unroll
+        for (int h = 0; h < G; ++h)
+          pv[h] = *reinterpret_cast<const float4*>(pw + h * KPW + j4);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vf[DPL];
+          load_f32<T, DPL>(vs + (warp * KPW + j4 + jj) * KST + d0, vf);
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            const float p = jj == 0 ? pv[h].x : jj == 1 ? pv[h].y
+                          : jj == 2 ? pv[h].z : pv[h].w;
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) acc[h][e] = fmaf(p, vf[e], acc[h][e]);
+          }
+        }
+      }
+    }
+    __syncthreads();              // the stage and pw are free again
+    cur = nxt;
+    nxt = cur < ntl ? next_tile(cur + 1) : ntl;
+  }
+
+  // the warps' states, merged in warp order into the block's
+  float* wpart = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    if (h < g) {
+      float* r = wpart + (warp * G + h) * (HD + 2);
+      if (lane == 0) {
+        r[0] = m[h];
+        r[1] = l[h];
+      }
+      if (d0 < HD) {
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) r[2 + d0 + e] = acc[h][e];
+      }
     }
   }
+  __syncthreads();
+  for (int e = tid; e < g * HD; e += THREADS) {
+    const int h = e / HD, d = e % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w)
+      M = fmaxf(M, wpart[(w * G + h) * (HD + 2)]);
+    float Ls = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float* r = wpart + (w * G + h) * (HD + 2);
+      const float wt = r[0] == -INFINITY ? 0.f : __expf(r[0] - M);
+      Ls = fmaf(r[1], wt, Ls);
+      O = fmaf(r[2 + d], wt, O);
+    }
+    float* bp = bpart + h * (HD + 2);
+    bp[2 + d] = O;
+    if (d == 0) {
+      bp[0] = M;
+      bp[1] = Ls;
+    }
+  }
+  cluster.sync();
+  // the cluster's blocks, merged in rank order; this block writes every
+  // nsplit-th group of THREADS outputs
+  T* ob = static_cast<T*>(a.out) + b * a.osb + kh * g * a.osh;
+  for (int e = rank * THREADS + tid; e < g * HD; e += a.nsplit * THREADS) {
+    const int h = e / HD, d = e % HD;
+    // every rank's (m, l, acc[d]) read at once: the remote loads overlap
+    float mr[MAX_SPLIT], lr[MAX_SPLIT], orr[MAX_SPLIT];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      mr[r] = -INFINITY;
+      lr[r] = orr[r] = 0.f;
+      if (r < a.nsplit) {
+        const float* bp = cluster.map_shared_rank(bpart, r) + h * (HD + 2);
+        mr[r] = bp[0];
+        lr[r] = bp[1];
+        orr[r] = bp[2 + d];
+      }
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) M = fmaxf(M, mr[r]);
+    float Ls = 0.f, O = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      const float wt = mr[r] == -INFINITY ? 0.f : __expf(mr[r] - M);
+      Ls = fmaf(lr[r], wt, Ls);
+      O = fmaf(orr[r], wt, O);
+    }
+    ob[h * a.osh + d] = from_f32<T>(O / fmaxf(Ls, 1e-30f));
+  }
+  cluster.sync();                 // keep this block's state until read
 }
 
-template <typename T, int HD>
-__global__ void decode_merge(Args a) {
-  const int H = a.Kh * a.g;
-  const int b = blockIdx.x / H, hq = blockIdx.x % H;
-  const int kh = hq / a.g, h = hq % a.g;
-  const int d = threadIdx.x;
-  const long long base = (long long)(b * a.Kh + kh) * a.nsplit;
-  float M = -INFINITY;
-  for (int s = 0; s < a.nsplit; ++s)
-    M = fmaxf(M, a.part_ml[((base + s) * a.g + h) * 2]);
-  float L = 0.f, O = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const long long idx = (base + s) * a.g + h;
-    const float w = expf(a.part_ml[idx * 2] - M);
-    L = fmaf(a.part_ml[idx * 2 + 1], w, L);
-    O = fmaf(a.part_acc[idx * HD + d], w, O);
+template <typename T, int HD, int G>
+int launch_g(Args a, int B, cudaStream_t stream) {
+  const int pairs = B * a.Kh;
+  const int ntiles = (a.W + TILE - 1) / TILE;
+  if (pairs > 65535) return (int)cudaErrorInvalidValue;
+  int ns = 1;
+  while (ns < MAX_SPLIT && ns * pairs < MIN_BLOCKS) ns *= 2;
+  while (ns > ntiles) ns /= 2;
+  const int tps = (ntiles + ns - 1) / ns;
+  a.nsplit = ns;
+  const size_t smem = Smem<T, HD, G>::total(tps);
+  auto kernel = flash_decode_kernel<T, HD, G>;
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted = smem;
   }
-  from_f32(static_cast<T*>(a.out) + b * a.osb + hq * a.osh + d,
-           O / fmaxf(L, 1e-30f));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ns, pairs);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch_hd(Args a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (size_t)(a.g * HD + TILE * (HD + 1) + TILE * HD + a.g * TILE);
-  constexpr long long PER = 16 / sizeof(T);
-  const bool vec = HD % PER == 0 && a.ksw % PER == 0 && a.ksb % PER == 0 &&
-                   a.ksh % PER == 0 && a.vsw % PER == 0 && a.vsb % PER == 0 &&
-                   a.vsh % PER == 0 && reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
-  auto kernel = vec ? decode_partial<T, HD, true> : decode_partial<T, HD, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(B * a.Kh, a.nsplit), THREADS, smem, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_merge<T, HD><<<B * a.Kh * a.g, HD, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.g == 1) return launch_g<T, HD, 1>(a, B, stream);
+  if (a.g <= 3) return launch_g<T, HD, 3>(a, B, stream);    // smollm: 3
+  return launch_g<T, HD, MAX_G>(a, B, stream);
 }
 
 template <typename T>
 int launch(Args a, int B, int H, int hd, cudaStream_t stream) {
-  if (B <= 0 || a.Kh <= 0 || H % a.Kh != 0 || H / a.Kh > MAX_G || a.W <= 0 ||
-      a.nsplit != (a.W + TILE - 1) / TILE)
+  if (B <= 0 || a.Kh <= 0 || H % a.Kh != 0 || H / a.Kh > MAX_G || a.W <= 0)
     return (int)cudaErrorInvalidValue;
   a.g = H / a.Kh;
+  // 16-byte copies need 16-byte aligned rows; the layout decides
+  constexpr long long VE = 16 / sizeof(T);
+  a.vec = a.ksw % VE == 0 && a.ksb % VE == 0 && a.ksh % VE == 0 &&
+          a.vsw % VE == 0 && a.vsb % VE == 0 && a.vsh % VE == 0 &&
+          reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
   switch (hd) {
     case 16: return launch_hd<T, 16>(a, B, stream);
     case 32: return launch_hd<T, 32>(a, B, stream);
@@ -240,22 +495,16 @@ int launch(Args a, int B, int H, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int flash_decode_splits(int W) { return (W + TILE - 1) / TILE; }
-
-// part_ml: B*Kh*splits*g*2 floats, part_acc: B*Kh*splits*g*hd floats
-// (splits = flash_decode_splits(W)), scratch the caller allocates.
 #define DECODE_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
-                      const int* valid, void* out, float* part_ml,            \
-                      float* part_acc, int B, int H, int Kh, int W, int hd,   \
-                      long long qsb, long long qsh, long long ksb,            \
-                      long long ksh, long long ksw, long long vsb,            \
-                      long long vsh, long long vsw, long long valsb,          \
-                      long long osb, long long osh, float sm_scale,           \
-                      void* stream) {                                         \
-    Args a{q, k, v, valid, out, part_ml, part_acc, Kh, W, 0,                  \
-           flash_decode_splits(W), qsb, qsh, ksb, ksh, ksw, vsb, vsh, vsw,    \
-           valsb, osb, osh, sm_scale};                                        \
+                      const int* valid, void* out, int B, int H, int Kh,      \
+                      int W, int hd, long long qsb, long long qsh,            \
+                      long long ksb, long long ksh, long long ksw,             \
+                      long long vsb, long long vsh, long long vsw,            \
+                      long long valsb, long long osb, long long osh,          \
+                      float sm_scale, void* stream) {                         \
+    Args a{q, k, v, valid, out, Kh, W, 0, 0, 0, qsb, qsh, ksb, ksh, ksw,     \
+           vsb, vsh, vsw, valsb, osb, osh, sm_scale};                         \
     return launch<T>(a, B, H, hd, (cudaStream_t)stream);                      \
   }
 

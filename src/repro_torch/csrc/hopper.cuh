@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: the
+// Hopper (sm_90a) building blocks shared by the port's kernels: the
 // Tensor Memory Accelerator (TMA) descriptor built on the host, mbarrier
-// and TMA-load wrappers, the wgmma shared-memory descriptor, and the four
-// wgmma shapes the kernels issue. Inline PTX only; no CUTLASS or CuTe, so
-// a cold build stays short.
+// and TMA-load wrappers, the wgmma shared-memory descriptor and the four
+// wgmma shapes the attention kernels issue, and the cp.async copies that
+// flash_decode and mamba2_scan pipeline their tiles with. Inline PTX
+// only; no CUTLASS or CuTe, so a cold build stays short.
 //
 // Tiles in shared memory are the TMA's 128-byte-swizzled layout: a tile
 // of R rows (sequence positions) is stored as ceil(hd / 64) panels of
@@ -139,6 +140,40 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)) : "memory");
+}
+
+// cp.async: 16 (or 4) bytes from global to shared memory without passing
+// through registers; `bytes` of them are read and the rest zero-filled,
+// so 0 reads nothing and writes zeros (a row past the end of a tensor).
+// `src` must be a valid address even then.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed cp.async groups of this thread are
+// pending (a __syncthreads after it makes every thread's copies visible)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's ordinary shared-memory writes (stores, cp.async)
+// visible to the async proxy that wgmma reads shared memory through;
+// a barrier after it then orders them before another thread's wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; byte offsets `lbo`

@@ -8,11 +8,16 @@ attended; the caller encodes causality and ring-buffer validity in it).
 A row with no valid slot returns the mean of v, as the reference does.
 
 ``flash_decode`` takes the plain version only for CPU tensors; a CUDA
-tensor goes to the hand-written kernel ``csrc/flash_decode.cu`` (a
-split-K pass over W-tiles and a log-sum-exp merge: two launches, one
-count) or raises. k and v are read through element strides (last dim
-contiguous): the model passes its ``(B, W, Kh, hd)`` cache as a
-permuted view, never a copy. Any W works (no ``W % block`` assert).
+tensor goes to the hand-written kernel ``csrc/flash_decode.cu`` or
+raises. It is one launch (one count) a call: a thread-block cluster per
+(batch row, KV head) splits the cache into ranges of 64-key tiles,
+reads no K or V of a tile whose slots are all invalid (unless the row
+has no valid slot at all), and merges the splits' softmax states
+through distributed shared memory in a fixed order, so two runs are
+bitwise equal. No scratch is allocated. k and v are read through
+element strides (last dim contiguous): the model passes its ``(B, W,
+Kh, hd)`` cache as a permuted view, never a copy. Any W works (no
+``W % block`` assert).
 """
 from __future__ import annotations
 
@@ -51,15 +56,12 @@ def _kernel(dtype: torch.dtype):
         for name, dt in (("flash_decode_f32", torch.float32),
                          ("flash_decode_bf16", torch.bfloat16)):
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 11
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib[dt] = fn
-        lib.flash_decode_splits.argtypes = [ctypes.c_int]
-        lib.flash_decode_splits.restype = ctypes.c_int
-        _lib["splits"] = lib.flash_decode_splits
-    return _lib[dtype], _lib["splits"]
+    return _lib[dtype]
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,16 +91,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1 \
             or valid.stride(-1) != 1:
         raise ValueError("flash_decode: the last dim must be contiguous")
-    fn, splits = _kernel(q.dtype)
+    fn = _kernel(q.dtype)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    # split-K scratch: per (b, kv head, split, query head) max, sum, acc
-    n = B * Kh * splits(W) * (H // Kh)
-    part_ml = torch.empty((n, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((n, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-                B, H, Kh, W, hd,
+                out.data_ptr(), B, H, Kh, W, hd,
                 q.stride(0), q.stride(1),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),

@@ -10,9 +10,14 @@ reference.
 
 ``mamba2_scan`` takes the plain version only for CPU tensors; a CUDA
 tensor goes to the hand-written kernel ``csrc/mamba2_scan.cu`` or
-raises. The kernel reads every input through element strides (last dim
-of x, Bmat and Cmat contiguous), so the model passes its causal conv's
-output as views, uncopied; the y it returns is a ``(B, NH, S, P)`` view
+raises. bf16 inputs (the model's prefill) run the tensor-core kernel:
+``wgmma`` products with f32 accumulators, W, the scaled x and the copy
+of h fed as hi/lo bf16 pairs (about 16 bits), h carried in f32, the
+next chunks' tiles loading while a chunk computes; f32 inputs run the
+CUDA-core kernel, which the f32 checks hold to 1e-3. The kernel reads
+every input through element strides (last dim of x, Bmat and Cmat
+contiguous), so the model passes its causal conv's output as views,
+uncopied; the y it returns is a ``(B, NH, S, P)`` view
 of a ``(B, S, NH, P)`` buffer, so the model's head merge after it is
 free. Any S works: the ragged tail is masked, where the Pallas kernel
 asserts ``S % chunk == 0``. The kernel always works in 64-row chunks;

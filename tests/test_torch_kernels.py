@@ -188,6 +188,88 @@ def test_flash_decode_plain_vs_pallas_and_ref(B, H, Kh, W, hd,
         np.testing.assert_allclose(got[0].numpy(), want, **TOL)
 
 
+def _decode_split_ref(q, k, v, valid, tile=64, splits=8):
+    """The CUDA kernel's algorithm in plain f32 (tests only): W cut into
+    64-key tiles, the tiles spread over at most 8 splits; a tile with no
+    valid key is skipped when its row has a valid key elsewhere (a row
+    with none scores every slot -1e30); each split keeps an online
+    softmax state (m, l, acc), and the splits merge by log-sum-exp in
+    split order. Returns the output and the number of tiles read."""
+    B, H, hd = q.shape
+    Kh, W = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(H // Kh, dim=1)
+    vr = v.repeat_interleave(H // Kh, dim=1)
+    scores = torch.einsum("bhd,bhwd->bhw", q, kr) / np.sqrt(hd)
+    ntiles = -(-W // tile)
+    splits = min(splits, ntiles)
+    out, read = torch.empty_like(q), 0
+
+    def weight(m, top):
+        return torch.where(m == -np.inf, torch.zeros_like(m),
+                           torch.exp(m - top))
+
+    for b in range(B):
+        row_any = bool((valid[b] > 0).any())
+        parts = []
+        for r in range(splits):
+            m = torch.full((H,), -np.inf)
+            l, acc = torch.zeros(H), torch.zeros(H, hd)
+            for t in range(r * ntiles // splits, (r + 1) * ntiles // splits):
+                cut = slice(t * tile, min(W, (t + 1) * tile))
+                ok = valid[b, cut] > 0
+                if row_any and not ok.any():
+                    continue
+                read += 1
+                sc = torch.where(ok, scores[b, :, cut],
+                                 torch.tensor(-np.inf if row_any else -1e30))
+                top = torch.maximum(m, sc.max(-1).values)
+                alpha, p = weight(m, top), weight(sc, top[:, None])
+                l = l * alpha + p.sum(-1)
+                acc = (acc * alpha[:, None]
+                       + torch.einsum("hw,hwd->hd", p, vr[b, :, cut]))
+                m = top
+            parts.append((m, l, acc))
+        top = torch.stack([m for m, _, _ in parts]).max(0).values
+        l_all = sum(l * weight(m, top) for m, l, _ in parts)
+        o_all = sum(acc * weight(m, top)[:, None] for m, _, acc in parts)
+        out[b] = o_all / torch.clamp(l_all, min=1e-30)[:, None]
+    return out, read
+
+
+@pytest.mark.parametrize("B,H,Kh,W,hd,mask", [
+    (2, 9, 3, 1024, 64, "holes"),      # smollm's served shape
+    (2, 9, 3, 1024, 64, "prefix"),     # whole empty tiles past the length
+    (3, 4, 4, 300, 112, "prefix"),     # hd 112, ragged W: a part tile
+    (2, 16, 1, 65, 64, "prefix"),      # g = 16, one slot past a tile
+    (2, 8, 2, 100, 32, "none"),        # no valid slot anywhere
+    (1, 4, 4, 1, 16, "holes"),         # one slot
+])
+def test_flash_decode_split_ref_vs_plain_and_pallas(B, H, Kh, W, hd, mask):
+    """Skipping the tiles with no valid key and merging the splits'
+    states by log-sum-exp is exact: it matches ``decode_ref`` and the
+    Pallas kernel, including a row with no valid slot (mean of v)."""
+    rng = np.random.default_rng(W + hd)
+    q, k, v = (_np(rng, (B, H, hd)), _np(rng, (B, Kh, W, hd)),
+               _np(rng, (B, Kh, W, hd)))
+    if mask == "holes":
+        valid = rng.integers(0, 2, (B, W))
+    else:                               # valid up to at most half of W
+        lengths = rng.integers(1, W // 2 + 2, (B, 1))
+        valid = np.arange(W)[None, :] < lengths * (mask == "prefix")
+    valid = valid.astype(np.int32)
+    valid[0] = 0                        # and a row with no valid slot
+    tq, tk, tv, tval = map(torch.tensor, (q, k, v, valid))
+    got, read = _decode_split_ref(tq, tk, tv, tval)
+    if mask == "prefix":                # tiles past each length skipped
+        assert read < B * -(-W // 64)
+    jq, jk, jv, jval = map(jnp.asarray, (q, k, v, valid))
+    pallas = flash_decode_op(jq, jk, jv, jval,
+                             block_k=256 if W % 256 == 0 else W,
+                             interpret=True)
+    _check(got, FD.decode_ref(tq, tk, tv, tval).numpy(), pallas,
+           ref.decode_ref(jq, jk, jv, jval))
+
+
 def test_flash_decode_plain_reads_the_cache_as_a_permuted_view():
     q, k, v, valid = _decode_inputs(2, 9, 3, 40, 64, 5)
     cache_k = torch.tensor(k).permute(0, 2, 1, 3).contiguous()  # (B,W,Kh,hd)

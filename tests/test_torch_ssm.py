@@ -103,6 +103,64 @@ def test_scan_out_dtype_keeps_f32():
     assert torch.equal(got, want)
 
 
+def _bf16_split(t):
+    """hi + lo, each a bf16 value: the two operands the tensor-core scan
+    feeds for one f32 operand."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def _scan_tensor_core_emulated(x, Bm, Cm, a, dt, chunk=64):
+    """The bf16 CUDA scan's arithmetic in plain f32: 64-row chunks (rows
+    past S zero, log a = 0); S = C Bᵀ exact (bf16 inputs); W = S o
+    exp(la_i - la_j) o dt_j, the copy of h and x o dt o exp(la_end - la_j)
+    each rounded to a bf16 hi/lo pair before its product; h in f32."""
+    B, NH, S, P = x.shape
+    x, Bm, Cm = x.float(), Bm.float(), Cm.float()
+    h = torch.zeros(B, NH, P, Bm.shape[-1])
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ys = []
+    for s0 in range(0, S, chunk):
+        n = min(chunk, S - s0)
+
+        def rows(t, dim):
+            t = t.narrow(dim, s0, n)
+            shape = list(t.shape)
+            shape[dim] = chunk - n
+            return torch.cat([t, t.new_zeros(shape)], dim)
+
+        xc, dtc = rows(x, 2), rows(dt, 2)
+        Bc, Cc = rows(Bm, 1)[:, None], rows(Cm, 1)[:, None]
+        la = torch.cumsum(rows(torch.log(a + 1e-20), 2), -1)
+        seg = torch.where(causal, la[..., :, None] - la[..., None, :],
+                          torch.tensor(-1e30))
+        W = _bf16_split(Cc @ Bc.transpose(-1, -2) * torch.exp(seg)
+                        * dtc[..., None, :])
+        y = (torch.exp(la)[..., None]
+             * (Cc @ _bf16_split(h).transpose(-1, -2)) + W @ xc)
+        xs = _bf16_split(xc * (dtc * torch.exp(la[..., -1:] - la))[..., None])
+        h = torch.exp(la[..., -1])[..., None, None] * h + xs.transpose(
+            -1, -2) @ Bc
+        ys.append(y[:, :, :n])
+    return torch.cat(ys, 2)
+
+
+@pytest.mark.parametrize("S", [1000, 130])
+def test_scan_tensor_core_rounding_fits_the_bf16_tolerance(S):
+    """The bf16 kernel's rounding points, emulated on the CPU at zamba2's
+    P = N = 64, against the f32 scan of the same bf16 inputs: within the
+    reference kernel test's bf16 tolerance (3e-2, relative and absolute),
+    and within the 1e-3 the card holds the kernel to, the about 16 bits
+    a hi/lo pair keeps."""
+    _, (x, Bm, Cm, a, dt) = _scan_inputs(1, 2, S, 64, 64, jnp.bfloat16,
+                                         seed=3)
+    want = mamba2_scan_plain(x, Bm, Cm, a, dt, out_dtype=torch.float32)
+    got = _scan_tensor_core_emulated(x, Bm, Cm, a, dt)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-3, atol=1e-3)
+
+
 # --------------------------------------------------------- the block
 SSM_KW = dict(state=16, conv=4, expand=2, headdim=16)
 

@@ -11,7 +11,8 @@ of its own source, the evidence for two choices in
 
 Each variant is the source with a textual substitution, compiled with
 the build's ``nvcc`` flags into ``build/repro_torch/variants/`` and
-swapped in for the wrapper's bf16 entry point. Prints the card, ptxas'
+swapped in for the wrapper's bf16 entry point
+(``source_variants.py``). Prints the card, ptxas'
 registers and spills of ``fa_fwd_wgmma<64>`` and ``<112>`` for each
 build, the error against the plain version, and device ms per call
 (``chip_smoke.time_ms``) at the serve (hd 64) and hybrid (hd 112)
@@ -25,7 +26,6 @@ Needs one CUDA card and ``nvcc``.
 import ctypes
 import os
 import re
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +37,7 @@ import torch  # noqa: E402
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from source_variants import build_variants  # noqa: E402
 
 EDITS = {
     "no_regs": [
@@ -65,34 +66,6 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def build_variants() -> dict:
-    """Compile every variant at once; {name: (bf16 entry point, ptxas)}."""
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    vdir = build.BUILD_DIR / "variants"
-    vdir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, edits in EDITS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu, so = vdir / f"fa_{name}.cu", vdir / f"fa_{name}.so"
-        cu.write_text(text)
-        jobs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-             str(build.CSRC), "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    got = {}
-    for name, (proc, so) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        fn = ctypes.CDLL(str(so)).flash_attention_bf16
-        got[name] = (fn, ptxas_summary(log))
-    return got
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -101,7 +74,9 @@ def main() -> None:
     main_fn = FA._kernel("flash_attention", torch.bfloat16)
     fns = {"main": (main_fn, ptxas_summary(main_log) if main_log
                     else "built earlier")}
-    for name, (fn, info) in build_variants().items():
+    for name, (fn, info) in build_variants(
+            "flash_attention", EDITS, "flash_attention_bf16",
+            ptxas_summary).items():
         fn.argtypes, fn.restype = main_fn.argtypes, ctypes.c_int
         fns[name] = (fn, info)
     for name, (_, info) in fns.items():
