@@ -94,8 +94,11 @@ Phases, in order; any failure exits non-zero and no result is printed:
    xlstm-125m's full-width prefill (B=8, NH=4, S=2048, hd=384), at a
    ragged S=1000, one short chunk (S=40), S=1 and at hd 64, q/k/v in
    bf16 and f32, y in f32 (2e-4 of max(1, max|ref|)) and bf16
-   (element-wise, 2e-2 of |ref| plus 1e-2); then timed (no PyTorch call computes the mLSTM:
-   its library time is null);
+   (element-wise, 2e-2 of |ref| plus 1e-2); then timed (no PyTorch call
+   computes the mLSTM: its library time is null; bf16 inputs at hd 384
+   run the tensor-core kernel ``MLSTM_BF16``, f32 the CUDA-core
+   ``mlstm_kernel``), with ptxas' registers and spills of the bf16 one
+   from the build;
 14. xlstm reference: reduced xlstm-125m in f32, the kernel on the card
    against the plain version on the CPU: prefill and admission-pass
    logits within 1e-4, the same requests served with identical token
@@ -157,6 +160,9 @@ ATTN_BWD_BF16 = ("bwd_dot", "fa_dkdv_wgmma", "fa_dq_wgmma")
 # inputs (the tensor-core kernel; f32 inputs keep ssd_kernel)
 DECODE = ("flash_decode_kernel",)
 SCAN_BF16 = ("ssd_tc_kernel",)
+# the mLSTM's with bf16 inputs at hd 384 (the tensor-core kernel; f32
+# inputs and hd 32 / 64 keep mlstm_kernel)
+MLSTM_BF16 = ("mlstm_tc_kernel",)
 LSE_TOL = 1e-3                   # the forward's saved LSE, bf16
 
 
@@ -247,6 +253,23 @@ def phase_build() -> float:
             f.write(f"== {name}\n{log}\n")
     print(f"build: {len(build.sources())} kernels in {dt:.2f} s")
     return dt
+
+
+def ptxas_regs(source: str, func: str) -> str:
+    """'N registers, S bytes spilled' of the CUDA function matching
+    ``func`` in csrc/<source>.cu, from the build's ptxas report
+    (``chiprun_out/ptxas.txt``), or "not measured" when this process
+    found the library built."""
+    import re
+    try:
+        with open(os.path.join(HERE, "chiprun_out", "ptxas.txt")) as f:
+            log = f.read().split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    except (OSError, IndexError):
+        return "not measured"
+    m = re.search(func + r".*?\n.*?(\d+) bytes spill stores.*?\n"
+                  r".*?Used (\d+) registers", log)
+    return (f"{m.group(2)} registers, {m.group(1)} bytes spilled" if m
+            else "not measured")
 
 
 def _attn_inputs(B, S, dtype, gen, H=9, Kh=3, hd=64):
@@ -572,7 +595,7 @@ PORT_KERNELS = {"attention": ("attn_kernel", "fa_fwd_wgmma", "bwd_dot",
                               "bwd_dkdv", "bwd_dq", "fa_dkdv_wgmma",
                               "fa_dq_wgmma") + DECODE,
                 "ssd scan": ("ssd_kernel",) + SCAN_BF16,
-                "mlstm": ("mlstm_kernel",)}
+                "mlstm": ("mlstm_kernel",) + MLSTM_BF16}
 
 
 def profile_work(work: dict, fname: str) -> None:
@@ -1568,7 +1591,7 @@ def phase_xlstm_parity():
     ins = _mlstm_inputs(gen, B, NH, S, hd, torch.bfloat16)
     ms, host = time_ms(lambda: MK.mlstm_chunkwise(*ins,
                                                   out_dtype=torch.float32),
-                       kernels=("mlstm_kernel",))
+                       kernels=MLSTM_BF16)
     plain, _ = time_ms(lambda: MK.mlstm_chunkwise_plain(
         *ins, out_dtype=torch.float32), iters=3)
     nbytes, flops = mlstm_cost(B, NH, S, hd)
@@ -1581,13 +1604,15 @@ def phase_xlstm_parity():
         "max_abs_err": err, "ms": ms, "host_ms": host, "plain_ms": plain,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None}
+        "library_ms": None,
+        "ptxas": ptxas_regs("mlstm_chunkwise", r"mlstm_tc_kernelIfE")}
     del ins
     torch.cuda.empty_cache()
     print(f"timing mlstm_chunkwise ({row['shape']}), device ms per call: "
           f"kernel {ms:.4f} (host-timed {host:.4f}), plain {plain:.4f}, "
           f"library none, bound {row['bound_ms']:.4f} ({row['bound_by']}: "
-          f"{nbytes / 1e6:.1f} MB, {flops:.3e} flops)")
+          f"{nbytes / 1e6:.1f} MB, {flops:.3e} flops); ptxas "
+          f"{row['ptxas']}")
     return [row]
 
 

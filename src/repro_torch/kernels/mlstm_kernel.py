@@ -16,7 +16,10 @@ exp(-m))``; ``C`` and ``n`` carried from chunk to chunk. Every
 
 ``mlstm_chunkwise`` takes the plain version only for CPU tensors; a
 CUDA tensor goes to the hand-written kernel ``csrc/mlstm_chunkwise.cu``
-or raises. The kernel reads every input through element strides (last
+or raises: bf16 q/k/v at hd 384 (the model's prefill) to the
+tensor-core kernel, whose tiles arrive by TMA (a 16-byte-aligned base
+and outer strides of a multiple of 16 bytes, checked here), everything
+else to the CUDA-core kernel. The kernel reads every input through element strides (last
 dim of q, k, v contiguous), so the model passes its projections as
 ``(B, NH, S, hd)`` views of ``(B, S, NH, hd)``, uncopied; the y it
 returns is a ``(B, NH, S, hd)`` view of a ``(B, S, NH, hd)`` buffer, so
@@ -39,8 +42,10 @@ from typing import Optional
 import torch
 
 from . import build
+from .flash_attention import _tma_layout_ok
 
 DIMS = (32, 64, 384)    # the head dims the kernel takes
+TC_DIM = 384            # bf16 at this head dim runs on the tensor cores
 BACKWARD_ITEM = "ROADMAP B.7 (the mLSTM kernel's backward, xLSTM training)"
 
 
@@ -153,6 +158,15 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("mlstm_chunkwise: the last dim of q, k and v must "
                          "be contiguous")
+    if q.dtype == torch.bfloat16 and hd == TC_DIM:
+        for t in (q, k, v):
+            if not _tma_layout_ok(t.shape, t.stride(), t.data_ptr(),
+                                  t.element_size()):
+                raise ValueError(
+                    "mlstm_chunkwise: the bf16 kernel reads q, k and v "
+                    "through TMA, which needs a 16-byte-aligned base and "
+                    "every outer stride a multiple of 16 bytes; got strides "
+                    f"{t.stride()} at address {t.data_ptr():#x}")
     y = torch.empty((B, S, NH, hd), dtype=out_dtype,
                     device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 18)(

@@ -536,6 +536,60 @@ def test_mlstm_chunkwise_ragged_tail_reads_nothing_past_s():
     torch.testing.assert_close(head, got, rtol=1e-5, atol=1e-5)
 
 
+def test_mlstm_chunkwise_full_xlstm_shape_matches_plain():
+    """The model's prefill call at full width: B=8, NH=4, S=2048, hd=384,
+    q/k/v bf16, y f32 (the tensor-core kernel), one launch."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    ins = _mlstm_inputs(gen, 8, 4, 2048, 384, torch.bfloat16)
+    n = MK.mlstm_chunkwise.launches
+    got = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+    assert MK.mlstm_chunkwise.launches == n + 1
+    assert got.shape == (8, 4, 2048, 384) and got.dtype == torch.float32
+    _mlstm_close(got, MK.mlstm_chunkwise_plain(*ins,
+                                               out_dtype=torch.float32),
+                 torch.float32)
+
+
+def test_mlstm_chunkwise_full_xlstm_shape_is_deterministic():
+    """No atomics on data: two runs at the full prefill shape are bitwise
+    equal."""
+    gen = torch.Generator("cuda").manual_seed(12)
+    ins = _mlstm_inputs(gen, 8, 4, 2048, 384, torch.bfloat16)
+    first = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+    second = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_mlstm_chunkwise_ragged_chunk_cut_from_longer_is_bitwise():
+    """S = 2000, not a multiple of the 64-row chunk, cut from 2048 rows:
+    bitwise equal to its contiguous copy (nothing past S is read), and
+    within the tolerance of the plain version."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    full = _mlstm_inputs(gen, 2, 4, 2048, 384, torch.bfloat16)
+    cut = tuple(t[:, :, :2000] for t in full)
+    got = MK.mlstm_chunkwise(*cut, out_dtype=torch.float32)
+    want = MK.mlstm_chunkwise(*(t.contiguous() for t in cut),
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _mlstm_close(got, MK.mlstm_chunkwise_plain(*cut,
+                                               out_dtype=torch.float32),
+                 torch.float32)
+
+
+def test_mlstm_chunkwise_refuses_a_layout_tma_cannot_read():
+    """bf16 at hd 384 reads q, k, v through TMA: an outer stride that is
+    not a multiple of 16 bytes raises, it does not fall back."""
+    gen = torch.Generator("cuda").manual_seed(14)
+    q, k, v, li, lf = _mlstm_inputs(gen, 1, 2, 64, 384, torch.bfloat16)
+    wide = torch.zeros((1, 64, 2, 384 + 4), dtype=torch.bfloat16,
+                       device="cuda")
+    wide[..., :384] = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="TMA"):
+        MK.mlstm_chunkwise(wide[..., :384].transpose(1, 2), k, v, li, lf)
+
+
 def test_mlstm_chunkwise_refuses_what_it_cannot_take():
     gen = torch.Generator("cuda").manual_seed(10)
     q, k, v, li, lf = _mlstm_inputs(gen, 1, 2, 64, 64, torch.float32)

@@ -97,6 +97,93 @@ def test_mlstm_out_dtype_keeps_f32():
     assert mlstm_chunkwise(*tin).dtype == torch.bfloat16
 
 
+def _bf16_split(t, lo=True):
+    """hi + lo, each a bf16 value: the two operands the tensor-core kernel
+    feeds for one f32 operand (hi alone where the lo product is
+    dropped)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float() if lo else hi
+
+
+LO_PRODUCTS = ("w", "c", "dv")    # W in W v, C in q C, dec o v in the update
+
+
+def _mlstm_tensor_core_emulated(q, k, v, logi, logf, chunk=64,
+                                lo=LO_PRODUCTS):
+    """The bf16 CUDA kernel's arithmetic in plain f32: 64-row chunks (rows
+    past S zero, logi = logf = 0); q kᵀ exact (bf16 inputs); m from the
+    prefix max of logi - lf; W, C and dec ∘ v each rounded to a bf16 hi/lo
+    pair before its product (hi alone for a product not in ``lo``), and n
+    before q n; C, n, the gate vectors and every sum in f32."""
+    B, NH, S, hd = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    C = torch.zeros(B, NH, hd, hd)
+    n = torch.zeros(B, NH, hd)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ys = []
+    for s0 in range(0, S, chunk):
+        nr = min(chunk, S - s0)
+
+        def rows(t):
+            t = t.narrow(2, s0, nr)
+            shape = list(t.shape)
+            shape[2] = chunk - nr
+            return torch.cat([t, t.new_zeros(shape)], 2)
+
+        qc, kc, vc, ic, fc = (rows(t) for t in (q, k, v, logi, logf))
+        lf = torch.cumsum(fc, -1)
+        m = torch.maximum(lf + torch.cummax(ic - lf, -1).values, lf)
+        a, b = lf - m, ic - lf
+        W = torch.where(causal, qc @ kc.transpose(-1, -2)
+                        * torch.exp(a[..., :, None] + b[..., None, :]),
+                        torch.tensor(0.0))
+        wl = torch.exp(a)
+        qn = (qc @ _bf16_split(n)[..., None])[..., 0]
+        den = torch.maximum((W.sum(-1) + wl * qn).abs(), torch.exp(-m))
+        y = (_bf16_split(W, "w" in lo) @ vc
+             + wl[..., None] * (qc @ _bf16_split(C, "c" in lo)))
+        ys.append((y / den[..., None])[:, :, :nr])
+        dec = torch.exp(lf[..., -1:] - lf + ic)
+        eend = torch.exp(lf[..., -1])
+        C = eend[..., None, None] * C + kc.transpose(-1, -2) @ _bf16_split(
+            vc * dec[..., None], "dv" in lo)
+        n = eend[..., None] * n + (kc * dec[..., None]).sum(-2)
+    return torch.cat(ys, 2)
+
+
+def _xlstm_width_inputs(S, seed=3):
+    """xlstm-125m's mLSTM head dim (384), two heads, q/k/v in bf16."""
+    _, tin = _mlstm_inputs(1, 2, S, 384, seed=seed)
+    return tuple(t.to(torch.bfloat16) for t in tin[:3]) + tin[3:]
+
+
+@pytest.mark.parametrize("S", [2048, 1000])
+def test_mlstm_tensor_core_rounding_fits_the_f32_tolerance(S):
+    """The bf16 kernel's rounding points, emulated on the CPU at hd 384,
+    against the f32 chunked mLSTM of the same bf16 inputs: within the 2e-4
+    of max(1, max|y|) the card holds the kernel to (the emulation lands
+    near 1e-4, a fortieth of it)."""
+    tin = _xlstm_width_inputs(S)
+    want = mlstm_chunkwise_plain(*tin, out_dtype=torch.float32)
+    got = _mlstm_tensor_core_emulated(*tin)
+    assert got.shape == want.shape
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= TOL * scale
+
+
+@pytest.mark.parametrize("dropped", LO_PRODUCTS)
+def test_mlstm_tensor_core_each_lo_product_is_needed(dropped):
+    """Why each lo product stays: with any one of them dropped (one bf16
+    rounding of W, of C or of dec ∘ v) y lands several times past the
+    tolerance at S = 2048."""
+    tin = _xlstm_width_inputs(2048)
+    want = mlstm_chunkwise_plain(*tin, out_dtype=torch.float32)
+    got = _mlstm_tensor_core_emulated(
+        *tin, lo=tuple(p for p in LO_PRODUCTS if p != dropped))
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() > 3 * TOL * scale
+
+
 # ------------------------------------------------------------ the blocks
 D, NH = 64, 4
 
