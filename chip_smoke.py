@@ -119,14 +119,39 @@ Phases, in order; any failure exits non-zero and no result is printed:
    drained with in-vocabulary tokens, 12 recurrent and 1 sequential
    admissions, no kernel launched (admission and decode are plain
    decode passes); a profiled decode step and prefill (8 x 512; tables
-   in ``xlstm_profile.txt``).
+   in ``xlstm_profile.txt``);
+18. pipeline reference: reduced smollm in f32, one 2-D (stage x data)
+   pipeline step on the card and one on the CPU from the same
+   parameters, batch and alive mask (team 3, one departed worker), for
+   (S=2, M=2, v=1, eager) and (S=2, M=2, v=2, pipelined, block_groups 2,
+   4 layers): loss and updated parameters within 1e-4, and on the card
+   within the reference's tolerances of the single-axis ``xla_psum``
+   program (loss rtol 1e-5, params rtol 2e-4 / atol 2e-5);
+19. pipeline train: smollm-135m at full width and depth (bf16, random
+   weights from a seeded generator) through ``TrainLoop`` on the 2-D
+   program: 3 stages x interleave 2 (6 chunks of 5 layers), 3
+   microbatches, overlapped sync, global batch 18 x 1024, ``phaser_scsl``
+   sync, churn ``join@4,leave:0@8`` (2 -> 3 -> 2 workers, three member
+   sets), 12 steps. The first step's loss and ``grad_norm`` within 2e-2
+   of the single-axis program's from the same parameters and batch;
+   every loss finite and the last below the first; 3 epochs, each proved
+   by ``verify_epoch`` and ``verify_phase_order``; 3 program-cache
+   misses; the launch counters of the attention forward, its backward
+   and ``bucket_combine``, zeroed just before, all > 0, and
+   ``bucket_combine``'s equal to what the schedule predicts (rounds x
+   bucket groups a step: the stage rows fold into one launch);
+   ``bucket_combine`` bitwise against its plain version at the path's
+   largest operand (team 3, the stage rows of the largest group); median
+   step seconds per epoch; a profiled extra step split among
+   ``pipeline.fwd``, ``pipeline.bwd``, ``gradsync.sync`` and
+   ``gradsync.update`` (full table in ``pipeline_profile.txt``).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (the counterparts of all five TPU kernels and the attention backward,
 plus the attention kernels' rows at hd 112; ``launches`` sums the serve,
-train, hybrid prefill, hybrid serve, xlstm prefill and xlstm serve
-runs, split in ``launches_by_path``), prefill, decode and training
-rates, the whole run's time, and as the last line
+train, hybrid prefill, hybrid serve, xlstm prefill, xlstm serve and
+pipeline runs, split in ``launches_by_path``), prefill, decode and
+training rates, the whole run's time, and as the last line
 ``{"ok": true, "device": {...}}``. f32
 matmuls run without TF32 (``allow_tf32`` off) wherever f32 results are
 compared.
@@ -180,6 +205,8 @@ def card_line() -> str:
 
 
 RANGE_PREFIX = "gradsync."       # the train step's profiler ranges
+# every step's ranges: the single-axis step's, the pipeline step's waves
+RANGES = (RANGE_PREFIX, "pipeline.")
 
 
 def cuda_kernels(prof):
@@ -188,7 +215,7 @@ def cuda_kernels(prof):
     from torch.autograd import DeviceType
     return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
             for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(RANGE_PREFIX)]
+            and not e.name.startswith(RANGES)]
 
 
 PROFILE_TRIES = 3
@@ -1885,6 +1912,312 @@ def phase_xlstm_serve(api, params) -> dict:
     return launches
 
 
+# ------------------------------------------------------- pipeline phases
+# the pipeline reference's two cases: (stages, microbatches, interleave,
+# overlap, block_groups, layers)
+PIPE_CASES = ((2, 2, 1, "eager", None, 2), (2, 2, 2, "pipelined", 2, 4))
+# the full-width pipeline run: churn 2 -> 3 -> 2 over three member sets
+PIPE_CHURN = "join@4,leave:0@8"
+PIPE_S, PIPE_V, PIPE_M, PIPE_STEPS = 3, 2, 3, 12
+PIPE_B, PIPE_SEQ, PIPE_LR, PIPE_WARMUP = 18, 1024, 2e-3, 3
+
+
+def phase_pipeline_reference() -> None:
+    """The 2-D step on the card against the CPU's plain versions, and
+    against the card's single-axis ``xla_psum`` program: reduced smollm
+    in f32, team 3 with one departed worker."""
+    import numpy as np
+    import torch
+    from repro_torch.collective_exec import build_gradsync_program
+    from repro_torch.core.collective import PhaserCollective
+    from repro_torch.data import make_batch
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.optim import AdamW
+    from repro_torch.pipeline_exec import build_pipeline_program
+    from repro_torch.utils import tree_flatten, tree_map
+
+    for S, M, v, ov, bg, L in PIPE_CASES:
+        api = get_api(get_config("smollm-135m").reduced(n_layers=L))
+        opt = AdamW(lr=1e-3, warmup=10, total_steps=20)
+        params = api.init_params(torch.Generator("cpu").manual_seed(0),
+                                 "cpu")
+        batch = make_batch(api.cfg.vocab_size, 12, 16, seed=0, step=0)
+        res = {}
+        for dev, kind in (("cpu", "phaser_scsl"), ("cuda", "phaser_scsl"),
+                          ("cuda", "xla_psum")):
+            pc = PhaserCollective(3, "data", kind=kind, seed=0)
+            prog = (build_pipeline_program(
+                api, opt, pc, n_stages=S, interleave=v, device=dev,
+                microbatches=M, overlap=ov, block_groups=bg)
+                if kind != "xla_psum" else
+                build_gradsync_program(api, opt, pc, device=dev))
+            p = tree_map(lambda t: t.to(dev), params)
+            alive = torch.tensor([1, 0, 1], dtype=torch.float32,
+                                 device=dev)
+            newp, _, pm = prog.step(p, opt.init(p), {
+                k: torch.tensor(x, device=dev) for k, x in batch.items()},
+                alive)
+            m = prog.reduce_metrics(pm)
+            res[(dev, kind)] = ([t.cpu() for t in tree_flatten(newp)[1]],
+                                m["loss"].item())
+        card, cpu = res[("cuda", "phaser_scsl")], res[("cpu", "phaser_scsl")]
+        single = res[("cuda", "xla_psum")]
+        e = max(abs(card[1] - cpu[1]),
+                *((a - b).abs().max().item() for a, b in zip(card[0],
+                                                             cpu[0])))
+        if not all(torch.isfinite(a).all() for a in card[0]):
+            fail(f"pipeline reference S{S}M{M}v{v}: non-finite params")
+        if not e <= 1e-4:
+            fail(f"pipeline reference S{S}M{M}v{v}: card and CPU disagree "
+                 f"by {e}")
+        try:
+            np.testing.assert_allclose(card[1], single[1], rtol=1e-5,
+                                       atol=1e-6)
+            for a, b in zip(card[0], single[0]):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4,
+                                           atol=2e-5)
+        except AssertionError as err:
+            fail(f"pipeline reference S{S}M{M}v{v} {ov}: the 2-D step and "
+                 f"the single-axis program disagree on the card: {err}")
+        e_single = max(abs(card[1] - single[1]),
+                       *((a - b).abs().max().item()
+                         for a, b in zip(card[0], single[0])))
+        print(f"pipeline reference: reduced smollm f32 ({L} layers), S={S} "
+              f"M={M} v={v} {ov}, team 3, one departed worker: card vs CPU "
+              f"plain max_abs_err={e:.3e}; card vs single-axis xla_psum "
+              f"max_abs_err={e_single:.3e}")
+
+
+def profile_ranges(fn, ranges=RANGES):
+    """One call of ``fn`` under torch.profiler: (host wall ms, device
+    busy ms, {range: {"host_ms", "device_ms", "count"}}, kernels by name,
+    the profiler). A range's device ms sums the kernels inside the time
+    windows of its device-side marks, over every instance of it."""
+    import bisect
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(ranges))
+    starts = [k[0] for k in kern]
+    spans = {}
+    for e in events:
+        if not e.name.startswith(ranges):
+            continue
+        sp = spans.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0,
+                                       "count": 0})
+        lo, hi = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CPU:
+            sp["host_ms"] += (hi - lo) / 1e3
+            sp["count"] += 1
+        elif e.device_type == DeviceType.CUDA:
+            i = bisect.bisect_left(starts, lo)
+            while i < len(kern) and kern[i][0] <= hi:
+                if kern[i][1] <= hi:
+                    sp["device_ms"] += (kern[i][1] - kern[i][0]) / 1e3
+                i += 1
+    by_name = {}
+    for a, b, name in kern:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    return wall, sum(by_name.values()), spans, by_name, prof
+
+
+def phase_pipeline_train() -> dict:
+    """smollm-135m at full width and depth through ``TrainLoop`` on the
+    2-D pipeline program; returns the kernels' launches in the run."""
+    import statistics
+    import torch
+    from repro_torch.collective_exec import build_gradsync_program
+    from repro_torch.core.collective import PhaserCollective
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import bucket_combine as BC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import parse_elastic
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.optim import AdamW
+    import repro_torch.pipeline_exec as PE
+    from repro_torch.runtime_elastic import ElasticPhaserRuntime
+    from repro_torch.train import TrainLoop
+
+    cfg = get_config("smollm-135m")
+    api = get_api(cfg)
+    n0 = 2
+    opt = AdamW(lr=PIPE_LR, warmup=PIPE_WARMUP, total_steps=PIPE_STEPS)
+    params = api.init_params(torch.Generator("cuda").manual_seed(0), "cuda")
+    runtime = ElasticPhaserRuntime(n0, seed=0, kind="phaser_scsl")
+    # the first step's single-axis reference: the same parameters, batch
+    # and team as the loop's first step
+    first = {k: torch.tensor(v, device="cuda") for k, v in make_batch(
+        cfg.vocab_size, PIPE_B, PIPE_SEQ, seed=0, step=0).items()}
+    single = build_gradsync_program(
+        api, opt, PhaserCollective(n0, "data", kind="xla_psum",
+                                   keys=runtime.epoch.live), device="cuda")
+    _, _, pm = single.step(params, opt.init(params), first)
+    m_single = {k: v.item() for k, v in single.reduce_metrics(pm).items()
+                if k in ("loss", "grad_norm")}
+    del single, pm, first
+    torch.cuda.empty_cache()
+
+    proofs = []
+    verify = PE.verify_phase_order
+
+    def counted(sched):
+        proofs.append(verify(sched))
+        return proofs[-1]
+    PE.verify_phase_order = counted
+    try:
+        runtime.verify_epoch()                  # epoch 0, before the run
+        PE.verify_phase_order(PE.derive_interleaved(PIPE_S, PIPE_M, PIPE_V))
+        loop = TrainLoop(api=api, opt=opt,
+                         data=SyntheticLM(vocab=cfg.vocab_size, batch=PIPE_B,
+                                          seq=PIPE_SEQ, seed=0),
+                         log_every=1, runtime=runtime,
+                         elastic_events=parse_elastic(PIPE_CHURN),
+                         overlap_sync=True, pipeline_stages=PIPE_S,
+                         interleave=PIPE_V, microbatches=PIPE_M,
+                         device="cuda")
+        torch.cuda.synchronize()
+        FA.flash_attention.launches = 0
+        FA.flash_attention_bwd.launches = 0
+        BC.bucket_combine.launches = 0
+        t0 = time.perf_counter()
+        params, opt_state = loop.run(PIPE_STEPS, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "flash_attention_bwd": FA.flash_attention_bwd.launches,
+                    "bucket_combine": BC.bucket_combine.launches}
+    finally:
+        PE.verify_phase_order = verify
+    runtime.verify_epoch()
+    # bucket_combine at this path's shape: the team-3 epoch's largest
+    # readiness group, its stage rows folded into the rows dim, bitwise
+    # against the plain version (launches here are not the run's)
+    prog = max((ts.program for ts in loop._progs.programs()),
+               key=lambda p: p.n)
+    rows = PIPE_S * max(hi - lo for lo, hi in prog.layout.groups)
+    gen = torch.Generator("cuda").manual_seed(3)
+    acc, y = (torch.randn((prog.n, rows, prog.layout.bucket_elems),
+                          generator=gen, device="cuda") for _ in range(2))
+    gate = torch.tensor([1, 0, 1][:prog.n], dtype=torch.int32,
+                        device="cuda")
+    for op in ("add", "copy"):
+        if not torch.equal(BC.bucket_combine(acc, y, gate, op=op),
+                           BC.combine_ref(acc, y, gate, op=op)):
+            fail(f"pipeline train: bucket_combine {op} at "
+                 f"{tuple(acc.shape)} differs from its plain version")
+    print(f"parity bucket_combine add, copy at the pipeline's "
+          f"{tuple(acc.shape)} (team {prog.n}, {PIPE_S} stage rows of the "
+          f"largest group): bitwise equal")
+    del acc, y
+    ms = loop.metrics_log
+    losses = [m["loss"] for m in ms]
+    predicted = sum(int(m["sync_rounds"]) * int(m["bucket_groups"])
+                    for m in ms)
+    teams = [len(e["live"]) for e in loop.epoch_log]
+    loss_err = abs(losses[0] - m_single["loss"]) / m_single["loss"]
+    norm_err = (abs(ms[0]["grad_norm"] - m_single["grad_norm"])
+                / m_single["grad_norm"])
+    print(f"pipeline train: smollm-135m full width and depth bf16, "
+          f"{PIPE_S} stages x {PIPE_V} interleave ({PIPE_S * PIPE_V} chunks "
+          f"of {cfg.n_layers // (PIPE_S * PIPE_V)} layers), {PIPE_M} "
+          f"microbatches, overlap on, {PIPE_B}x{PIPE_SEQ} tokens/step, "
+          f"{PIPE_STEPS} steps in {wall:.3f} s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({[round(x, 4) for x in losses]}); epochs "
+          f"{[n0] + teams}; program cache {loop._progs.stats()}; "
+          f"pipeline_waves {int(ms[0]['pipeline_waves'])}, ring_slots "
+          f"{int(ms[0]['ring_slots'])}, bucket_groups "
+          f"{int(ms[0]['bucket_groups'])}; phase-order proofs "
+          f"{len(proofs)}; launches {launches}; bucket_combine launches "
+          f"{launches['bucket_combine']}, the schedule predicts {predicted} "
+          f"(rounds x bucket groups, stage rows folded, per step)")
+    print(f"pipeline train: first step vs the single-axis program from the "
+          f"same parameters and batch: loss {losses[0]:.6f} vs "
+          f"{m_single['loss']:.6f} (rel {loss_err:.3e}), grad_norm "
+          f"{ms[0]['grad_norm']:.6f} vs {m_single['grad_norm']:.6f} (rel "
+          f"{norm_err:.3e})")
+    if len(losses) != PIPE_STEPS or not all(math.isfinite(x)
+                                            for x in losses):
+        fail(f"pipeline train: losses not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"pipeline train: loss did not fall: {losses[0]} -> "
+             f"{losses[-1]}")
+    if not (loss_err <= 2e-2 and norm_err <= 2e-2):
+        fail(f"pipeline train: first step off the single-axis program's: "
+             f"loss rel {loss_err}, grad_norm rel {norm_err}")
+    if runtime.epoch.index != 2 or teams != [3, 2] or len(proofs) != 3:
+        fail(f"pipeline train: epochs {runtime.epoch.index + 1}, "
+             f"boundaries {teams}, phase-order proofs {len(proofs)}")
+    if loop._progs.stats()["misses"] != 3:
+        fail(f"pipeline train: program cache {loop._progs.stats()}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"pipeline train: a kernel was never launched: {launches}")
+    if launches["bucket_combine"] != predicted:
+        fail(f"pipeline train: {launches['bucket_combine']} bucket_combine "
+             f"launches, the schedule predicts {predicted}")
+    # a step belongs to the epoch of the boundaries before it (the log's
+    # "epoch" is read after the step's own boundary)
+    bounds = [e["step"] for e in loop.epoch_log]
+    by_epoch = {}
+    for m in ms:
+        by_epoch.setdefault(sum(b < m["step"] for b in bounds), []).append(m)
+    for ep, rows in sorted(by_epoch.items()):
+        med = statistics.median(r["dt"] for r in rows)
+        print(f"pipeline train: epoch {ep} (team {int(rows[0]['team'])}): "
+              f"{len(rows)} steps, median step {med:.4f} s, "
+              f"{PIPE_B * PIPE_SEQ / med:.1f} tokens/s, pipeline_waves "
+              f"{int(rows[0]['pipeline_waves'])}")
+    phase_pipeline_profile(loop, params, opt_state)
+    return launches
+
+
+def phase_pipeline_profile(loop, params, opt_state) -> None:
+    """One more step of the last epoch's pipeline program under
+    torch.profiler: host wall and device busy split among the step's
+    four ranges (pipeline.fwd, pipeline.bwd, gradsync.sync,
+    gradsync.update)."""
+    import torch
+
+    ts = loop._build_step()
+    n = ts.program.n
+    alive = torch.ones((n,), device="cuda")
+    batch = {k: torch.tensor(v, device="cuda")
+             for k, v in next(loop.data).items()}
+    ts.fn(params, opt_state, batch, alive)          # warm: one unprofiled
+    torch.cuda.synchronize()
+    wall, busy, spans, by_name, prof = profile_ranges(
+        lambda: ts.fn(params, opt_state, batch, alive))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    attn = sum(v for k, v in by_name.items()
+               if any(m in k for m in PORT_KERNELS["attention"]))
+    comb = sum(v for k, v in by_name.items() if "combine_" in k)
+    parts = "; ".join(f"{k} x{v['count']} host {v['host_ms']:.3f} ms device "
+                      f"{v['device_ms']:.3f} ms"
+                      for k, v in sorted(spans.items()))
+    print(f"profile pipeline step (team {n}, {PIPE_S} stages x {PIPE_V}, "
+          f"{tuple(batch['tokens'].shape)} tokens): host wall {wall:.3f} "
+          f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
+          f"attention kernels {attn:.3f} ms, bucket_combine {comb:.3f} ms; "
+          f"{parts}; top: "
+          + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    with open(os.path.join(HERE, "chiprun_out", "pipeline_profile.txt"),
+              "w") as f:
+        f.write(f"== pipeline step, team {n}: wall {wall:.4f} ms, busy "
+                f"{busy:.4f} ms\n{json.dumps(spans, indent=1)}\n"
+                + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top) + "\n")
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=60) + "\n")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1923,6 +2256,11 @@ def main() -> int:
     phase_xlstm_cross_f32()
     api, params, by_path["xlstm_prefill"] = phase_xlstm_prefill()
     by_path["xlstm_serve"] = phase_xlstm_serve(api, params)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_pipeline_reference()
+    by_path["pipeline"] = phase_pipeline_train()
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}

@@ -14,7 +14,11 @@ cache serves collectives from differently-seeded runtimes, and an
 ``extra_key`` for builder-level configuration that changes the compiled
 program without changing the collective — the overlap mode, bucket-group
 config, and microbatch count (DESIGN.md §5): an eager and a pipelined
-program over the same member set are distinct cache entries.
+program over the same member set are distinct cache entries. So are the
+2-D pipeline programs of different stage counts and interleave factors:
+the train loop puts both in ``extra_key``, and a ``PipelineProgram``'s
+own ``key`` (what checkpoints persist) carries its chunk map and
+interleave after the collective key.
 
 LRU-bounded: compiled shard_map executables hold device buffers; the
 default capacity keeps the last 8 teams warm.

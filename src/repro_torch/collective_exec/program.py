@@ -101,6 +101,14 @@ class GradSyncProgram:
                                device=self.stack.device)
         return self.run(params, opt_state, batch, alive)
 
+    # single-axis programs carry canonical state: the converters exist
+    # so loops drive this and the pipeline program alike
+    def bind_state(self, params, opt_state):
+        return params, opt_state
+
+    def readout_state(self, params, opt_state):
+        return params, opt_state
+
     def reduce_metrics(self, pm: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         return reduce_worker_metrics(pm, self.meta)
 

@@ -21,11 +21,22 @@ run by the ``bucket_combine`` kernel) whenever the batch divides the
 team; ``--device-collective`` requires it, ``--overlap-sync`` runs the
 pipelined round order.
 
+``--pipeline-stages S`` (DESIGN.md §6) runs the 2-D program: the stacked
+blocks split over S stage rows, microbatches (``--microbatches`` is the
+1F1B depth; the batch must divide workers x microbatches) flow through
+the wave-synchronous 1F1B schedule, and each stage row's grads sync over
+the team by the epoch's schedule. ``--interleave v`` runs the
+interleaved 1F1B order (v non-contiguous chunks per stage; the scan
+length must divide S*v and ``--microbatches`` by S). Every epoch
+boundary re-proves the wave order against the SIG/WAIT phaser actors:
+
+  ... --reduced --workers 2 --pipeline-stages 2 --microbatches 2 \
+      --batch 12 --seq 32 --elastic "join@3,leave@6"
+
 Not ported yet, and refused with the ROADMAP item that ports them:
 ``--processes``/``--fabric``/``--chaos*`` (the multi-host runtime,
-A.10), ``--pipeline-stages``/``--interleave`` (A.9) and
-``--host-devices`` (a simulated host mesh; the port stacks the team on
-one device instead).
+A.10) and ``--host-devices`` (a simulated host mesh; the port stacks the
+team on one device instead).
 """
 from __future__ import annotations
 
@@ -47,8 +58,6 @@ NOT_PORTED = {
     "chaos": "ROADMAP A.10 (multi-host data plane)",
     "chaos_links": "ROADMAP A.10 (multi-host data plane)",
     "chaos_reset": "ROADMAP A.10 (multi-host data plane)",
-    "pipeline_stages": "ROADMAP A.9 (pipeline_exec)",
-    "interleave": "ROADMAP A.9 (pipeline_exec)",
     "host_devices": "ROADMAP A.10 (the port stacks the team on one "
                     "device; multi-card runs need torch.distributed)",
 }
@@ -90,7 +99,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
-                    help="override the config's layer count")
+                    help="override the config's layer count (e.g. to "
+                         "make the scan axis divide stages*interleave)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -118,14 +128,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "kernel versions)")
-    # the reference's multi-host and pipeline options: refused below
+    ap.add_argument("--pipeline-stages", type=int, default=1,
+                    help="pipeline parallelism: split the stacked blocks "
+                         "over S stage rows and run the 1F1B wave "
+                         "schedule with --microbatches as its depth "
+                         "(engine path)")
+    ap.add_argument("--interleave", type=int, default=1,
+                    help="virtual stages per stage row: the interleaved "
+                         "1F1B schedule (v non-contiguous chunks each; "
+                         "needs --microbatches divisible by the stages)")
+    # the reference's multi-host options: refused below
     ap.add_argument("--processes", type=int, default=1)
     ap.add_argument("--fabric", default=None)
     ap.add_argument("--chaos", type=int, default=None)
     ap.add_argument("--chaos-links", default=None)
     ap.add_argument("--chaos-reset", type=float, default=0.0)
-    ap.add_argument("--pipeline-stages", type=int, default=1)
-    ap.add_argument("--interleave", type=int, default=1)
     ap.add_argument("--host-devices", type=int, default=None)
     args = ap.parse_args(argv)
 
@@ -156,8 +173,9 @@ def main(argv=None):
                        seq=args.seq, seed=args.seed)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     runtime = None
+    pipeline = args.pipeline_stages > 1 or args.interleave > 1
     if (args.elastic is not None or args.device_collective
-            or args.overlap_sync):
+            or args.overlap_sync or pipeline):
         # the engine's programs are keyed by the runtime's epochs (a
         # static team is just a single epoch)
         runtime = ElasticPhaserRuntime(args.workers, seed=args.seed,
@@ -173,8 +191,11 @@ def main(argv=None):
                      timeline=timeline, metrics=metrics_reg,
                      runtime=runtime, elastic_events=events or {},
                      device_collective=(True if args.device_collective
-                                        or args.overlap_sync else None),
-                     overlap_sync=args.overlap_sync, device=args.device)
+                                        or args.overlap_sync or pipeline
+                                        else None),
+                     overlap_sync=args.overlap_sync,
+                     pipeline_stages=args.pipeline_stages,
+                     interleave=args.interleave, device=args.device)
     try:
         loop.run(args.steps, resume=args.resume)
     except ValueError as e:

@@ -1,9 +1,9 @@
 """Model API and the port's own config registry.
 
 Port of ``repro/models/registry.py``. ``ModelAPI`` hides family
-differences behind init / loss / prefill / decode; the pipeline-stage
-functions wait for ROADMAP A.9 and the input specs for the dry-run
-tooling (A.11). Only configs of the families the port has are
+differences behind init / loss / prefill / decode and the pipeline-stage
+functions (embed, a slice of the blocks, head); the input specs wait for
+the dry-run tooling (A.11). Only configs of the families the port has are
 registered: smollm-135m (dense), zamba2-7b (hybrid) and xlstm-125m
 (xLSTM: family ssm with sLSTM groups);
 ``reduced(family="ssm", hybrid_attn_every=0)`` of the hybrid gives the
@@ -49,6 +49,32 @@ class ModelAPI:
         loss = _xent(logits, batch["targets"])
         total = loss + 0.01 * aux
         return total, {"loss": loss, "aux": aux}
+
+    # ------------------------------------------- pipeline stages (train)
+    def pipeline_supported(self) -> bool:
+        """Whether the model decomposes into pipeline stages: a single
+        stacked-blocks scan (dense/moe/ssm/xlstm/hybrid decoder-only).
+        vlm prepends patches (stage 0 would need the vision frontend)
+        and enc-dec has two stacks; both keep the single-axis path."""
+        return (not self.cfg.is_encdec
+                and self.cfg.family in ("dense", "moe", "ssm", "hybrid"))
+
+    def embed_fn(self, params, tokens):
+        """Input-side stage: tokens (B, S) -> activations (B, S, D)."""
+        return transformer.embed_tokens(self.cfg, params, tokens)
+
+    def stage_fn(self, io_params, blocks, h, *, remat: bool = False):
+        """One stage's compute: a slice of the stacked blocks over the
+        incoming activation. ``io_params`` carries the non-block
+        parameters (the hybrid family's shared attention is applied
+        inside each group). Returns (h, aux)."""
+        return transformer.forward_stage(
+            self.cfg, blocks, h, shared=io_params.get("shared"),
+            remat=remat)
+
+    def head_fn(self, params, h):
+        """Output-side stage: final norm + (tied) unembedding."""
+        return transformer.head_logits(self.cfg, params, h)
 
     def loss_from_logits(self, logits, targets):
         return _xent(logits, targets)

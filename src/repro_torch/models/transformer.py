@@ -15,8 +15,13 @@ and one sLSTM block, parameters stacked (G, k-1, ...) and (G, ...).
 ``remat`` checkpoints one scan element (a layer, or a group) as
 ``jax.checkpoint(body)`` does: only its input is kept and the backward
 recomputes it. Other families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; the pipeline-stage split (``embed_tokens``,
-``forward_stage``, ``head_logits``) waits for ROADMAP A.9.
+ROADMAP item that ports them.
+
+The pipeline-stage split (``pipeline_exec``): ``embed_tokens`` (the
+input side), ``forward_stage`` (a contiguous slice of the stacked
+blocks, a layer or a group each, walked by the same body as
+``forward``'s, so chaining the slices is ``forward``) and
+``head_logits`` (final norm and unembedding).
 
 ``decode_step`` updates the state in place (KV caches, SSM, mLSTM and
 sLSTM carries), where the reference returns a new tree. Its optional
@@ -32,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..utils import tree_leaves
 from . import attention as A
 from . import ssm as SSM
 from . import xlstm as XL
@@ -284,19 +290,35 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         raise ValueError("forward: remat is for training; the cache "
                          "handoff is a serving path")
     h = embed_apply(params["embed"], tokens)
+    h, ks, vs = _walk(cfg, params["blocks"], h, params.get("shared"),
+                      remat=remat, want_cache=want_cache)
+    logits = _head(cfg, params, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = None
+    if want_cache:
+        caches = {"layers": ({"k": torch.stack(ks), "v": torch.stack(vs)}
+                             if ks else None)}
+    return logits, aux, caches
+
+
+def _walk(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
+          shared: Optional[Dict], *, remat: bool, want_cache: bool):
+    """The stacked blocks (all of them, or a contiguous slice) over
+    ``h``, one scan element (a layer, or a group) at a time: (h, ks,
+    vs), the per-element caches when ``want_cache``."""
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    shared = params.get("shared")
     if cfg.family == "hybrid":
-        body, n = _hybrid_group, _groups(cfg)[0]
+        body = _hybrid_group
     elif cfg.slstm_every:
-        body, n = _xlstm_group, _groups(cfg)[0]
+        body = _xlstm_group
     else:
-        body, n = ((_block if cfg.family == "dense" else _ssm_block),
-                   cfg.n_layers)
+        body = _block if cfg.family == "dense" else _ssm_block
+    n = {v.shape[0] for v in tree_leaves(blocks)}
+    assert len(n) == 1, f"ragged scan axis: {n}"
     ks, vs = [], []
-    for pl in _unstack(params["blocks"], n):
+    for pl in _unstack(blocks, n.pop()):
         if remat:
             h = checkpoint(lambda x, p: body(cfg, p, x, positions, shared)[0],
                            h, pl, use_reentrant=False)
@@ -305,13 +327,36 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         if want_cache and k is not None:
             ks.append(k)
             vs.append(v)
-    logits = _head(cfg, params, h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    caches = None
-    if want_cache:
-        caches = {"layers": ({"k": torch.stack(ks), "v": torch.stack(vs)}
-                             if ks else None)}
-    return logits, aux, caches
+    return h, ks, vs
+
+
+# ---------------------------------------------------------------------------
+# Pipeline-stage decomposition (pipeline_exec): embed | block slice | head
+# ---------------------------------------------------------------------------
+def embed_tokens(cfg: ModelConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The input-side pipeline stage: tokens (B, S) -> h (B, S, D)."""
+    _require_ported(cfg)
+    return embed_apply(params["embed"], tokens)
+
+
+def forward_stage(cfg: ModelConfig, blocks: Params, h: torch.Tensor, *,
+                  shared: Optional[Params] = None,
+                  remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A contiguous SLICE of the stacked blocks over an incoming
+    activation: one pipeline stage's compute, by the same body as the
+    slice inside ``forward``, so chaining the stage slices is the full
+    forward exactly. Returns (h, aux_slice); the ported families have no
+    auxiliary loss, so aux is an f32 zero."""
+    _require_ported(cfg)
+    h = _walk(cfg, blocks, h, shared, remat=remat, want_cache=False)[0]
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def head_logits(cfg: ModelConfig, params: Params,
+                h: torch.Tensor) -> torch.Tensor:
+    """The output-side pipeline stage: final norm + (tied) unembedding."""
+    return _head(cfg, params, h)
 
 
 # ---------------------------------------------------------------------------

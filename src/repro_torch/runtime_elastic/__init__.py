@@ -1,5 +1,6 @@
 from .elastic_phaser import ElasticPhaserRuntime, Epoch, WorkerEvent
+from .membership import ElasticController
 from .strikes import StrikeAction, StrikeEscalation
 
-__all__ = ["ElasticPhaserRuntime", "Epoch", "StrikeAction",
-           "StrikeEscalation", "WorkerEvent"]
+__all__ = ["ElasticController", "ElasticPhaserRuntime", "Epoch",
+           "StrikeAction", "StrikeEscalation", "WorkerEvent"]

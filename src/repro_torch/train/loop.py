@@ -17,6 +17,13 @@ config, so a boundary that revisits a team reuses its program (and its
 buffer). Every checkpoint carries the live program key, so a resume
 builds the checkpointed epoch's program before step 1.
 
+``pipeline_stages > 1`` (or ``interleave > 1``) makes each epoch's step
+the 2-D pipeline program (``pipeline_exec``; ``microbatches`` is the
+1F1B depth), and every epoch boundary also proves the (interleaved)
+1F1B wave order against real SIG/WAIT phaser actors
+(``verify_phase_order``). Checkpoints and the loop's return hold the
+canonical layer order (``readout_state``).
+
 The per-worker alive mask is evaluated after the step's events: a
 worker that fails at step s contributes zeros in step s itself, while
 its epoch boundary lands after it.
@@ -61,6 +68,14 @@ class TrainLoop:
     device_collective: Optional[bool] = None
     # pipelined round order over the readiness groups (engine path)
     overlap_sync: bool = False
+    # pipeline parallelism (engine path): the stacked blocks split over
+    # a stage axis, the 1F1B wave schedule on a (stage, data) grid;
+    # ``microbatches`` is the pipeline depth M (DESIGN.md §6)
+    pipeline_stages: int = 1
+    # interleaved virtual stages: each stage owns ``interleave``
+    # non-contiguous chunks (bubble (S-1)/(vM+S-1)); needs
+    # microbatches % pipeline_stages == 0
+    interleave: int = 1
     timeline: Optional[obs_timeline.Timeline] = None
     metrics: Optional[MetricsRegistry] = None
     device: Any = "cuda"
@@ -100,22 +115,31 @@ class TrainLoop:
             self._apply_elastic_events(s)
             self.runtime.advance(step=s)
 
+    @property
+    def _pipelined_2d(self) -> bool:
+        return self.pipeline_stages > 1 or self.interleave > 1
+
     def _use_program(self, pc) -> bool:
         """Whether the epoch's step is the engine's program: the team
-        (and per-rank microbatching) must divide the batch."""
+        (and per-rank microbatching) must divide the batch. The 2-D
+        pipeline path requires it."""
         if self.device_collective is False or pc is None:
+            if self._pipelined_2d:
+                raise ValueError("pipeline_stages/interleave > 1 "
+                                 "require the device-collective path")
             return False
         ok = (pc.n >= 1 and self.data.batch % pc.n == 0
               and (self.data.batch // pc.n) % self.microbatches == 0)
-        if self.device_collective is True:
+        if self.device_collective is True or self._pipelined_2d:
             assert ok, (f"device_collective requested but team={pc.n}, "
+                        f"stages={self.pipeline_stages}, "
                         f"batch={self.data.batch}, "
                         f"microbatches={self.microbatches}")
         return ok
 
     def _ensure_progs(self):
-        """The epoch-aware program cache; the overlap/microbatch config
-        rides the cache key."""
+        """The epoch-aware program cache; the overlap/microbatch and
+        pipeline config rides the cache key."""
         if self._progs is None:
             from ..collective_exec import ProgramCache
             self._progs = ProgramCache(
@@ -123,8 +147,10 @@ class TrainLoop:
                     self.api, self.opt, remat=self.remat,
                     microbatches=self.microbatches, collective=c,
                     program=True, overlap=self._overlap_mode,
-                    device=self.device),
-                extra_key=(self._overlap_mode, self.microbatches),
+                    pipeline_stages=self.pipeline_stages,
+                    interleave=self.interleave, device=self.device),
+                extra_key=(self._overlap_mode, self.microbatches,
+                           self.pipeline_stages, self.interleave),
                 metrics=self.metrics)
         return self._progs
 
@@ -148,7 +174,8 @@ class TrainLoop:
             return None
         return {"process_set": [0], **key, "overlap": self._overlap_mode,
                 "microbatches": self.microbatches,
-                "pipeline_stages": 1, "interleave": 1}
+                "pipeline_stages": self.pipeline_stages,
+                "interleave": self.interleave}
 
     def _prebuild_from_key(self, pk: Optional[Dict]) -> None:
         """Resume path: rebuild the checkpointed epoch's collective and
@@ -157,6 +184,8 @@ class TrainLoop:
             return
         if (pk.get("overlap") != self._overlap_mode
                 or pk.get("microbatches") != self.microbatches
+                or pk.get("pipeline_stages", 1) != self.pipeline_stages
+                or pk.get("interleave", 1) != self.interleave
                 or (self.runtime is not None
                     and (pk.get("kind") != self.runtime.kind
                          or pk.get("seed") != self.runtime.seed))):
@@ -169,6 +198,22 @@ class TrainLoop:
                               leaf_keys=tuple(pk.get("leaf_keys", ())))
         if self._use_program(pc):
             self._ensure_progs().get(pc)
+
+    def _to_canonical(self, ts, params, opt_state):
+        """Carried state -> canonical layer order (the program's
+        ``readout_state``; identity without a program)."""
+        prog = getattr(ts, "program", None)
+        if prog is not None:
+            return prog.readout_state(params, opt_state)
+        return params, opt_state
+
+    def _to_carried(self, ts, params, opt_state):
+        """Canonical state -> the program's carried layout, paid once at
+        bind / restore."""
+        prog = getattr(ts, "program", None)
+        if prog is not None:
+            return prog.bind_state(params, opt_state)
+        return params, opt_state
 
     def run(self, steps: int, *, params=None, opt_state=None,
             resume: bool = False, on_step: Optional[Callable] = None):
@@ -194,6 +239,7 @@ class TrainLoop:
             if self.runtime is not None:
                 self._replay_elastic_events(start)
                 ts = self._build_step()
+        params, opt_state = self._to_carried(ts, params, opt_state)
 
         for step in range(start, steps):
             if self.runtime is not None:
@@ -229,7 +275,8 @@ class TrainLoop:
                 if ep.index != before:
                     # checkpoint-consistent swap: persist, then re-build
                     if self.ckpt is not None:
-                        self.ckpt.save(step + 1, params, opt_state,
+                        cp, co = self._to_canonical(ts, params, opt_state)
+                        self.ckpt.save(step + 1, cp, co,
                                        extra={"data":
                                               self.data.state_dict()},
                                        program_key=self._program_key())
@@ -242,6 +289,14 @@ class TrainLoop:
                     if self.metrics is not None:
                         self.metrics.inc("train.relower")
                     self.runtime.verify_epoch()
+                    if self._pipelined_2d:
+                        # the stage axis's own proof: the (interleaved)
+                        # 1F1B wave order against the real p2p actors
+                        from ..pipeline_exec import (derive_interleaved,
+                                                     verify_phase_order)
+                        verify_phase_order(derive_interleaved(
+                            self.pipeline_stages, self.microbatches,
+                            self.interleave))
                     self.epoch_log.append({
                         "step": step, "phase": released,
                         "epoch": ep.index, "live": list(ep.live),
@@ -255,11 +310,13 @@ class TrainLoop:
                     m["live"] = len(self.runtime.live)
                 self.metrics_log.append(m)
             if self.ckpt is not None and (step + 1) % self.ckpt_every == 0:
-                self.ckpt.save(step + 1, params, opt_state,
+                cp, co = self._to_canonical(ts, params, opt_state)
+                self.ckpt.save(step + 1, cp, co,
                                extra={"data": self.data.state_dict()},
                                program_key=self._program_key())
             if on_step is not None:
                 on_step(step, params, metrics)
+        params, opt_state = self._to_canonical(ts, params, opt_state)
         if self.ckpt is not None:
             self.ckpt.save(steps, params, opt_state,
                            extra={"data": self.data.state_dict()},

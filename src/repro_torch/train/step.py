@@ -11,10 +11,13 @@ Two paths, as in the reference:
   execution engine's ``GradSyncProgram`` over the team's ``RankStack``:
   per-rank grads synced by the epoch's schedule through the
   ``bucket_combine`` kernel (``overlap="pipelined"`` keeps the
-  reference's double-buffered round order).
-
-Pipeline parallelism (``pipeline_stages > 1`` or ``interleave > 1``) is
-not ported yet (ROADMAP A.9) and raises.
+  reference's double-buffered round order);
+* pipeline: with ``collective``, ``program=True`` and
+  ``pipeline_stages > 1`` or ``interleave > 1``, the step is the 2-D
+  ``PipelineProgram`` (``pipeline_exec``): the (interleaved) 1F1B
+  schedule over the stage rows, each stage row's grads synced over the
+  data ranks by the epoch's schedule. Without a collective program the
+  pipeline options raise, as the reference's loop does.
 """
 from __future__ import annotations
 
@@ -31,22 +34,17 @@ from ..utils import tree_map
 @dataclass
 class TrainStep:
     """A train step. ``fn(params, opt, batch)`` -> (params, opt,
-    metrics); on the program path ``fn`` also takes a trailing
+    metrics); on the program paths ``fn`` also takes a trailing
     per-worker alive mask and ``program`` is the engine's
-    ``GradSyncProgram``."""
+    ``GradSyncProgram`` or the 2-D ``PipelineProgram``."""
 
     fn: Callable
     program: Any = None
 
 
-def _program_step(api: ModelAPI, opt: AdamW, collective, *, device,
-                  remat: bool, overlap: str = "eager",
-                  microbatches: int = 1) -> TrainStep:
-    from ..collective_exec import build_gradsync_program
-    prog = build_gradsync_program(api, opt, collective, device=device,
-                                  remat=remat, overlap=overlap,
-                                  microbatches=microbatches)
-
+def _program_train_step(prog) -> TrainStep:
+    """A ``GradSyncProgram`` or ``PipelineProgram`` as a train step whose
+    metrics are reduced over the team."""
     def fn(params, opt_state, batch, alive=None):
         new_p, new_o, pm = prog.step(params, opt_state, batch, alive)
         return new_p, new_o, prog.reduce_metrics(pm)
@@ -63,15 +61,22 @@ def build_train_step(api: ModelAPI, opt: AdamW, *, remat: bool = True,
     ``program`` it enters the metrics as static sync metadata (team
     size, rounds, messages); with it, the step is the engine's program
     over ``device`` and the schedule's rounds are the gradient
-    reduction."""
+    reduction; ``pipeline_stages > 1`` or ``interleave > 1`` make it
+    the 2-D pipeline program (``microbatches`` is the 1F1B depth)."""
     if pipeline_stages > 1 or interleave > 1:
-        raise NotImplementedError(
-            "pipeline_stages/interleave > 1: the 2-D stage x data "
-            "program is not ported yet (ROADMAP A.9)")
+        if collective is None or not program:
+            raise ValueError("pipeline_stages/interleave > 1 require the "
+                             "collective program path")
+        from ..pipeline_exec import build_pipeline_program
+        return _program_train_step(build_pipeline_program(
+            api, opt, collective, n_stages=pipeline_stages,
+            interleave=interleave, device=device,
+            microbatches=microbatches, remat=remat, overlap=overlap))
     if collective is not None and program:
-        return _program_step(api, opt, collective, device=device,
-                             remat=remat, overlap=overlap,
-                             microbatches=microbatches)
+        from ..collective_exec import build_gradsync_program
+        return _program_train_step(build_gradsync_program(
+            api, opt, collective, device=device, remat=remat,
+            overlap=overlap, microbatches=microbatches))
     sync_meta = None
     if collective is not None:
         st = collective.stats()

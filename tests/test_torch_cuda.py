@@ -3,8 +3,9 @@ held against their plain PyTorch versions (the CPU path) on the same
 inputs. Beyond the shapes ``chip_smoke.py`` checks, these sweep every
 head dim the kernels take, group sizes 1 to 16, ragged lengths, sliding
 windows, holes in the decode mask, unaligned and contiguous layouts,
-the attention backward, the bucket combine over strided group views, and
-one gradient-sync step per schedule kind.
+the attention backward, the bucket combine over strided group views,
+one gradient-sync step per schedule kind, and the 2-D pipeline step
+(against the CPU and the single-axis program, and its kernel launches).
 
 They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
@@ -827,3 +828,84 @@ def test_launch_train_cli_on_card(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert out.count('{"epoch_boundary"') == 2
+
+
+# the two cases of chip_smoke's pipeline reference phase: (stages,
+# microbatches, interleave, overlap, block_groups, layers)
+PIPE_CASES = {"S2M2v1": (2, 2, 1, "eager", None, 2),
+              "S2M2v2-piped": (2, 2, 2, "pipelined", 2, 4)}
+
+
+def _pipe_step(api, opt, params, dev, case, kind="phaser_scsl"):
+    from repro_torch.pipeline_exec import build_pipeline_program
+    S, M, v, ov, bg, _ = case
+    pc = PhaserCollective(3, "data", kind=kind, seed=0)
+    prog = build_pipeline_program(api, opt, pc, n_stages=S, interleave=v,
+                                  device=dev, microbatches=M, overlap=ov,
+                                  block_groups=bg)
+    b = make_batch(api.cfg.vocab_size, 12, 16, seed=0, step=0)
+    p = _to(params, dev)
+    alive = torch.tensor([1, 0, 1], dtype=torch.float32, device=dev)
+    newp, _, pm = prog.step(p, opt.init(p), {
+        k: torch.tensor(x, device=dev) for k, x in b.items()}, alive)
+    return prog, tree_flatten(newp)[1], prog.reduce_metrics(pm)
+
+
+@pytest.mark.parametrize("name", sorted(PIPE_CASES))
+def test_pipeline_step_on_card_matches_cpu(name):
+    """Reduced smollm in f32, team 3 with a departed worker: the 2-D
+    step on the card against the CPU (loss and params 1e-4) and against
+    the card's single-axis ``xla_psum`` program (loss rtol 1e-5, params
+    rtol 2e-4 / atol 2e-5)."""
+    case = PIPE_CASES[name]
+    api = get_api(get_config("smollm-135m").reduced(n_layers=case[-1]))
+    opt = AdamW(lr=1e-3, warmup=10, total_steps=20)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    _, card, m = _pipe_step(api, opt, params, "cuda", case)
+    _, cpu, mc = _pipe_step(api, opt, params, "cpu", case)
+    assert abs(m["loss"].item() - mc["loss"].item()) <= 1e-4
+    for a, w in zip(card, cpu):
+        assert a.is_cuda and (a.cpu() - w).abs().max() <= 1e-4
+    ref = build_gradsync_program(
+        api, opt, PhaserCollective(3, "data", kind="xla_psum"),
+        device="cuda")
+    p = _to(params, "cuda")
+    b = make_batch(api.cfg.vocab_size, 12, 16, seed=0, step=0)
+    p2, _, pm2 = ref.step(p, opt.init(p), {
+        k: torch.tensor(x, device="cuda") for k, x in b.items()},
+        torch.tensor([1.0, 0.0, 1.0], device="cuda"))
+    m2 = ref.reduce_metrics(pm2)
+    np.testing.assert_allclose(m["loss"].item(), m2["loss"].item(),
+                               rtol=1e-5, atol=1e-6)
+    for a, w in zip(card, tree_flatten(p2)[1]):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", sorted(PIPE_CASES))
+def test_pipeline_path_launches_the_kernels(name, monkeypatch):
+    """On the card the 2-D step launches the attention forward (forward
+    waves and recomputes), its backward, and ``bucket_combine`` once a
+    round (per readiness group when pipelined: the stage rows fold into
+    one launch), and never a plain version."""
+    case = PIPE_CASES[name]
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for mod, fn in ((FA, "attention_ref"), (FA, "attention_bwd_ref"),
+                    (BC, "combine_ref")):
+        monkeypatch.setattr(mod, fn, plain)
+    api = get_api(get_config("smollm-135m").reduced(n_layers=case[-1]))
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    before = (FA.flash_attention.launches, FA.flash_attention_bwd.launches,
+              BC.bucket_combine.launches)
+    prog, _, _ = _pipe_step(api, AdamW(), params, "cuda", case)
+    fwd, bwd, comb = (a - b for a, b in zip(
+        (FA.flash_attention.launches, FA.flash_attention_bwd.launches,
+         BC.bucket_combine.launches), before))
+    S, M, v, ov, _, L = case
+    # per rank: each layer's forward once in its forward wave and once in
+    # its recompute, its backward once, for each microbatch
+    assert fwd == 3 * 2 * M * L and bwd == 3 * M * L, (fwd, bwd)
+    groups = prog.layout.n_groups if ov == "pipelined" else 1
+    assert comb == len(prog.pc.unified_schedule().rounds) * groups

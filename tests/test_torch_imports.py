@@ -4,7 +4,9 @@ either. The module list covers every subpackage: serving, kernels,
 optim, data, collective_exec, train, checkpoint, both launchers, the
 SSM/hybrid slice (models.ssm, the mamba2_scan kernel, the zamba2
 config) and the xLSTM slice (models.xlstm, the mlstm_chunkwise kernel,
-the xlstm-125m config)."""
+the xlstm-125m config), the protocol layer (creation, model checker,
+bounds, point-to-point phasers, the live watermarks), the pipeline slice
+(``pipeline_exec``) and the examples, whose import runs nothing."""
 import ast
 import os
 import subprocess
@@ -44,7 +46,18 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.kernels.mamba2_scan",
               "repro_torch.configs.zamba2_7b", "repro_torch.models.xlstm",
               "repro_torch.kernels.mlstm_kernel",
-              "repro_torch.configs.xlstm_125m"):
+              "repro_torch.configs.xlstm_125m",
+              "repro_torch.core.creation", "repro_torch.core.complexity",
+              "repro_torch.core.modelcheck", "repro_torch.core.p2p",
+              "repro_torch.obs.live",
+              "repro_torch.runtime_elastic.membership",
+              "repro_torch.pipeline_exec",
+              "repro_torch.pipeline_exec.schedule",
+              "repro_torch.pipeline_exec.stage_program",
+              "repro_torch.examples", "repro_torch.examples.quickstart",
+              "repro_torch.examples.serve_decode",
+              "repro_torch.examples.modelcheck_demo",
+              "repro_torch.examples.elastic_train"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -671,14 +671,21 @@ def test_train_cli_trace_and_metrics(tmp_path, capsys):
 
 
 def test_pipeline_stages_are_not_ported_yet():
+    """The 2-D pipeline is ported (``tests/test_torch_pipeline.py``); what
+    stays refused is a pipeline without the collective program, as the
+    reference's loop refuses it."""
     _, _, api, _ = _pair()
     from repro_torch.train import build_train_step
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(ValueError, match="collective program"):
         build_train_step(api, AdamW(), pipeline_stages=2, device="cpu")
+    step = build_train_step(
+        api, AdamW(), pipeline_stages=2, device="cpu", program=True,
+        collective=PhaserCollective(2, "data", kind="xla_psum"))
+    assert step.program.n_stages == 2
 
 
 def test_train_cli_refuses_what_is_not_ported(capsys):
-    for extra in (["--pipeline-stages", "2"], ["--processes", "2"],
+    for extra in (["--host-devices", "2"], ["--processes", "2"],
                   ["--elastic", "kill@3"]):
         with pytest.raises(SystemExit):
             launch_train.main(["--reduced", "--device", "cpu", *extra])
