@@ -1,8 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --planted
 
-Phases, in order; any failure exits non-zero and no result is printed:
+Phases, in order, except that the kernel parity and timing phases 2, 5,
+8, 13 and 21 run first and the families' phases 20 and 22-25 after
+phase 3 (after the training phases' profiles, torch.profiler loses most
+short sessions' records); any failure exits non-zero and no result is
+printed. ``--planted`` runs phase 1 and then only the check of phase 21
+against faults planted in the bf16 kernels' sources (``planted``):
 
 1. build: compile every CUDA source of ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), timed;
@@ -145,12 +151,51 @@ Phases, in order; any failure exits non-zero and no result is printed:
    step seconds per epoch; a profiled extra step split among
    ``pipeline.fwd``, ``pipeline.bwd``, ``gradsync.sync`` and
    ``gradsync.update`` (full table in ``pipeline_profile.txt``).
+20. families reference: reduced mixtral-8x7b, llama4-scout (top 1 of 16
+   experts), whisper-small and llava-next-34b in f32, the kernels on the
+   card against the plain versions on the CPU from the same parameters:
+   prefill logits and 24 decode steps past the window (whisper's over
+   the prefill's cross K/V) within 1e-4, the MoE aux loss within 1e-5,
+   both attention kernels' counters, zeroed just before, > 0;
+21. families parity: both attention kernels at the families' shapes,
+   bf16 (2e-2 absolute and ``FAM_ROW_TOL`` of every output row) and f32
+   (1e-4) against their plain versions: the forward
+   at hd 128 over S 4608 with mixtral's window of 4096, at g = 7
+   (llava), whisper's non-causal cross-attention (Sq 448, Sk 1500) and
+   encoder (S 1500); the decode over mixtral's 4096-slot ring (holes,
+   g = 4) and over whisper's 1500 cross keys (all valid, g = 1); each
+   timed beside its plain version, SDPA and its bound;
+22. mixtral serve: mixtral-8x7b at full width, 8 of 32 layers, bf16,
+   through ``ServeEngine`` (4 slots, a 4096-slot ring): 8 prompts of
+   512..4000 tokens with 64 new tokens and one of 4000 with 160, all
+   through bulk KV admission; every request drained with in-vocabulary
+   tokens, 9 bulk admissions, both kernels launched, the ring wrapped;
+   admission and decode rates; a profiled decode step and admission
+   prefill split between the attention and MoE layers (``fam.*``
+   ranges; tables in ``families_profile.txt``; a profile counts only if
+   it recorded every attention kernel the wrappers launched);
+23. whisper: whisper-small whole, bf16, 4 requests of 1500 frames:
+   ``prefill_full_fn``, the cross K/V copied into the decode state, the
+   prompt decoded through it (the last token's logits against the
+   prefill's, relative L2 within ``FAM_BF16_BOUND``), 64 greedy tokens;
+   encode timed alone; a profiled decode step;
+24. llava: llava-next-34b at full width, 16 of 60 layers, bf16, 2
+   requests of 576 patches + 512 tokens: prefill, the KV spliced into
+   the decode state, the last prompt token decoded through it against
+   the prefill's logits, 32 greedy steps from position 1088; a profiled
+   decode step;
+25. config sweep: llama4-scout (2 of 48 layers), qwen2-72b (4 of 80),
+   granite-3-2b and qwen2.5-3b (whole), full width, bf16: one prefill
+   of 1024 tokens and 8 decode steps each (the dense ones' last prompt
+   token through the cache against the prefill's logits), finite
+   logits, both kernels launched; each model freed before the next.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (the counterparts of all five TPU kernels and the attention backward,
-plus the attention kernels' rows at hd 112; ``launches`` sums the serve,
-train, hybrid prefill, hybrid serve, xlstm prefill, xlstm serve and
-pipeline runs, split in ``launches_by_path``), prefill, decode and
+plus the attention kernels' rows at hd 112 and at the families' shapes;
+``launches`` sums the serve, train, hybrid prefill, hybrid serve, xlstm
+prefill, xlstm serve, pipeline, mixtral serve, whisper, llava and config
+sweep runs, split in ``launches_by_path``), prefill, decode and
 training rates, the whole run's time, and as the last line
 ``{"ok": true, "device": {...}}``. f32
 matmuls run without TF32 (``allow_tf32`` off) wherever f32 results are
@@ -330,6 +375,79 @@ def print_timing(r: dict) -> None:
           f"{r['bound_ms']:.4f} ({r['bound_by']})")
 
 
+def _attn_row(q, k, v, causal, win, err, shape):
+    """The timing row of one bf16 flash_attention call at (q, k, v)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    # the (query, key) pairs this call's masks leave visible
+    if causal:
+        i = torch.arange(Sq, dtype=torch.float64)
+        pairs = int(torch.clamp(i + 1, max=win or Sq).sum())
+    else:
+        pairs = Sq * Sk
+    flops = 4 * B * H * hd * pairs
+    nbytes = 2 * (2 * B * H * Sq * hd + 2 * B * Kh * Sk * hd)
+    ms, host = time_ms(lambda: FA.flash_attention(
+        q, k, v, causal=causal, sliding_window=win), kernels=ATTN_FWD_BF16)
+    plain, _ = time_ms(lambda: FA.attention_ref(
+        q, k, v, causal=causal, sliding_window=win), iters=3)
+    # SDPA takes a window that cuts as a boolean mask
+    mask = None
+    if win and win < Sq:
+        pos = torch.arange(Sq, device="cuda")
+        mask = ((pos[None] <= pos[:, None])
+                & (pos[:, None] - pos[None] < win))
+    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=H != Kh))
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "shape": shape, "max_abs_err": err, "ms": ms, "host_ms": host,
+        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib, "tflops": flops / ms / 1e9}
+
+
+def _decode_row(q, views, valid, err, shape):
+    """The timing row of bf16 flash_decode over the caches ``views``
+    (one a layer, each cold in L2 when it is read)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as FD
+    B, H, hd = q.shape
+    Kh = views[0][0].shape[1]
+    L = len(views)
+    n_valid = int(valid.sum())
+    flops = 4 * H * hd * n_valid
+    nbytes = 2 * (2 * n_valid * Kh * hd + 2 * B * H * hd) + 4 * valid.numel()
+
+    def cycle(fn):
+        return lambda: [fn(kk, vv) for kk, vv in views]
+    ms, host = time_ms(cycle(lambda kk, vv: FD.flash_decode(q, kk, vv,
+                                                           valid)),
+                       calls=L, kernels=DECODE)
+    plain, _ = time_ms(cycle(lambda kk, vv: FD.decode_ref(q, kk, vv, valid)),
+                       calls=L, iters=3)
+    q4, mask = q[:, :, None, :], (valid[:, None, None, :] > 0)
+    lib, _ = time_ms(cycle(lambda kk, vv: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask, enable_gqa=H != Kh)), calls=L)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:63",
+        "shape": f"{shape}, {n_valid}/{valid.numel()} slots valid",
+        "max_abs_err": err, "ms": ms, "host_ms": host, "plain_ms": plain,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib}
+
+
 def check_lse(q, k, v, window, what: str) -> None:
     """The forward's saved per-row LSE (natural log) against the plain
     one, bf16, causal, at a timing shape."""
@@ -384,7 +502,6 @@ def phase_parity():
     """Each kernel against its plain version at the main path's shapes;
     returns the kernels' timing rows."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
 
@@ -428,25 +545,8 @@ def phase_parity():
     B, S, H, Kh, hd = 8, 1024, 9, 3, 64
     q, k, v = _attn_inputs(B, S, torch.bfloat16, gen)
     check_lse(q, k, v, None, "hd 64")
-    flops = 4 * B * H * hd * S * (S + 1) // 2          # causal half
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kh * hd)
-    ms, host = time_ms(lambda: FA.flash_attention(q, k, v, causal=True),
-                       kernels=ATTN_FWD_BF16)
-    plain, _ = time_ms(lambda: FA.attention_ref(q, k, v, causal=True),
-                       iters=3)
-    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:73",
-        "shape": f"B={B} H={H} Kh={Kh} S={S} hd={hd} bf16 causal",
-        "max_abs_err": err["flash_attention"], "ms": ms, "host_ms": host,
-        "plain_ms": plain,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib, "tflops": flops / ms / 1e9})
+    rows.append(_attn_row(q, k, v, True, None, err["flash_attention"],
+                          f"B={B} H={H} Kh={Kh} S={S} hd={hd} bf16 causal"))
 
     # decode: cycle the 30 layers of a full-size cache, as a decode step
     # does, so each launch finds its K/V cold in L2 (30 x 12.6 MB)
@@ -455,35 +555,8 @@ def phase_parity():
     valid[0] = 1
     views = [(k[l].permute(0, 2, 1, 3), v[l].permute(0, 2, 1, 3))
              for l in range(L)]
-    mask = (valid[:, None, None, :] > 0)
-    # only valid slots' K/V rows are needed: count this run's mask
-    n_valid = int(valid.sum())
-    flops = 4 * H * hd * n_valid
-    nbytes = 2 * (2 * n_valid * Kh * hd + 2 * B * H * hd) + 4 * B * W
-
-    def cycle(fn):
-        return lambda: [fn(kk, vv) for kk, vv in views]
-
-    ms, host = time_ms(cycle(lambda kk, vv: FD.flash_decode(q, kk, vv,
-                                                           valid)), calls=L,
-                       kernels=DECODE)
-    plain, _ = time_ms(cycle(lambda kk, vv: FD.decode_ref(q, kk, vv, valid)),
-                       calls=L, iters=3)
-    q4 = q[:, :, None, :]
-    lib, _ = time_ms(cycle(lambda kk, vv: F.scaled_dot_product_attention(
-        q4, kk, vv, attn_mask=mask, enable_gqa=True)), calls=L)
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    rows.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:63",
-        "shape": f"B={B} H={H} Kh={Kh} W={W} hd={hd} bf16, "
-                 f"{n_valid}/{B * W} slots valid",
-        "max_abs_err": err["flash_decode"], "ms": ms, "host_ms": host,
-        "plain_ms": plain,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib})
+    rows.append(_decode_row(q, views, valid, err["flash_decode"],
+                            f"B={B} H={H} Kh={Kh} W={W} hd={hd} bf16"))
     for r in rows:
         print_timing(r)
     enqueue_ms()
@@ -1128,7 +1201,6 @@ def phase_hybrid_parity():
     flash_decode at the shared block's hd 112. Then each timed; returns
     the timing rows."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import mamba2_scan as MS
@@ -1212,25 +1284,9 @@ def phase_hybrid_parity():
     B, S, H, hd = 2, 2048, 32, 112
     q, k, v = _attn_inputs(B, S, torch.bfloat16, gen, **SHARED)
     check_lse(q, k, v, 4096, "hd 112")
-    flops = 4 * B * H * hd * S * (S + 1) // 2
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * H * hd)
-    ms, host = time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
-                                                  sliding_window=4096),
-                       kernels=ATTN_FWD_BF16)
-    plain, _ = time_ms(lambda: FA.attention_ref(
-        q, k, v, causal=True, sliding_window=4096), iters=3)
-    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:73",
-        "shape": f"B={B} H=Kh={H} S={S} hd={hd} bf16 causal (zamba2 shared)",
-        "max_abs_err": err["fa112"], "ms": ms, "host_ms": host,
-        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib, "tflops": flops / ms / 1e9})
+    rows.append(_attn_row(q, k, v, True, 4096, err["fa112"],
+                          f"B={B} H=Kh={H} S={S} hd={hd} bf16 causal "
+                          f"(zamba2 shared)"))
     del q, k, v
 
     # the shared block's decode over the serve cell's 27 applications'
@@ -1241,33 +1297,9 @@ def phase_hybrid_parity():
     valid[0] = 1
     views = [(k[l].permute(0, 2, 1, 3), v[l].permute(0, 2, 1, 3))
              for l in range(L)]
-    mask = (valid[:, None, None, :] > 0)
-    n_valid = int(valid.sum())
-    flops = 4 * H * hd * n_valid
-    nbytes = 2 * (2 * n_valid * H * hd + 2 * B * H * hd) + 4 * B * W
-
-    def cycle(fn):
-        return lambda: [fn(kk, vv) for kk, vv in views]
-
-    ms, host = time_ms(cycle(lambda kk, vv: FD.flash_decode(q, kk, vv,
-                                                           valid)), calls=L,
-                       kernels=DECODE)
-    plain, _ = time_ms(cycle(lambda kk, vv: FD.decode_ref(q, kk, vv, valid)),
-                       calls=L, iters=3)
-    q4 = q[:, :, None, :]
-    lib, _ = time_ms(cycle(lambda kk, vv: F.scaled_dot_product_attention(
-        q4, kk, vv, attn_mask=mask)), calls=L)
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    rows.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:63",
-        "shape": f"B={B} H=Kh={H} W={W} hd={hd} bf16 (zamba2 shared), "
-                 f"{n_valid}/{B * W} slots valid",
-        "max_abs_err": err["fd112"], "ms": ms, "host_ms": host,
-        "plain_ms": plain, "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib})
+    rows.append(_decode_row(q, views, valid, err["fd112"],
+                            f"B={B} H=Kh={H} W={W} hd={hd} bf16 "
+                            f"(zamba2 shared)"))
     del q, k, v, views
     torch.cuda.empty_cache()
     for r in rows:
@@ -2218,6 +2250,664 @@ def phase_pipeline_profile(loop, params, opt_state) -> None:
                                           row_limit=60) + "\n")
 
 
+# ------------------------------------------------- the remaining families
+MIXTRAL, LLAMA4, WHISPER, LLAVA = ("mixtral-8x7b", "llama4-scout-17b-a16e",
+                                   "whisper-small", "llava-next-34b")
+# depth on the card (full width): the model's bf16 weights at that depth
+# take the rest of the 80 GB with room for the run (PERF.md section 4)
+FAM_DEPTH = {MIXTRAL: 8, LLAVA: 16, LLAMA4: 2, "qwen2-72b": 4}
+# a full-width bf16 model's prefill logits against its decode of the same
+# position through the cache: relative L2, the two paths rounding at
+# other points (PERF.md section 4)
+FAM_BF16_BOUND = 5e-2
+AUX_TOL = 1e-5
+# the attention kernels in bf16 at the families' shapes, beside TOL's
+# absolute 2e-2 (about a typical output there): the largest over output
+# rows of |got - want| / |want| (L2 over a row's hd values), a few times
+# the sound bf16 error (PERF.md section 6; ``--planted`` shows what it
+# catches)
+FAM_ROW_TOL = 1e-2
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _family_batch(api, B, S, seed, device="cuda"):
+    """``api.make_inputs`` of a prefill of B x S positions (VLM: 576 of
+    them patches, enc-dec: 1500 frames beside), made from ``seed`` on
+    ``device``."""
+    from repro_torch.configs import ShapeConfig
+    return api.make_inputs(ShapeConfig("prefill", S, B, "prefill"),
+                           seed=seed, device=device)
+
+
+def phase_families_reference() -> None:
+    """Reduced mixtral, llama4-scout (top-1 of 16 experts), whisper and
+    llava in f32, the kernels on the card against the plain versions on
+    the CPU from the same parameters: prefill logits and 24 decode steps
+    (past the window: mixtral's ring wraps) within 1e-4, whisper's with
+    the prefill's cross K/V; the MoE aux loss within 1e-5; both attention
+    kernels launched on the card."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api, get_config
+
+    # the family phases' profiles append to one file
+    open(os.path.join(HERE, "chiprun_out", "families_profile.txt"),
+         "w").close()
+    for name, over in ((MIXTRAL, {}), (LLAMA4, {"n_experts": 16}),
+                       (WHISPER, {}), (LLAVA, {})):
+        cfg = get_config(name).reduced(moe_group_size=16, **over)
+        api = get_api(cfg)
+        params = api.init_params(torch.Generator("cpu").manual_seed(0),
+                                 "cpu")
+        outs, aux = {}, {}
+        batch = _family_batch(api, 2, 13 + cfg.vision_tokens, 1, "cpu")
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            b = _to(batch, dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                FA.flash_attention.launches = 0
+                FD.flash_decode.launches = 0
+            logits, caches = api.prefill_full_fn(p, b)
+            if cfg.family == "moe":
+                aux[dev] = transformer.forward(cfg, p, b["tokens"])[1]
+            state = api.init_decode_state(2, 20, dev)
+            if cfg.is_encdec:
+                state["cross_k"].copy_(caches["cross_k"])
+                state["cross_v"].copy_(caches["cross_v"])
+            got = [logits]
+            for s in range(24):
+                t = torch.tensor([s, s + 1], dtype=torch.int32, device=dev)
+                lg, state = api.decode_fn(p, state, {
+                    "token": b["tokens"][:, s % 13], "t": t})
+                got.append(lg)
+            outs[dev] = got + [state["layers"]["k"]]
+        launches = (FA.flash_attention.launches, FD.flash_decode.launches)
+        worst = 0.0
+        for a, c in zip(outs["cpu"], outs["cuda"]):
+            if not torch.isfinite(c).all():
+                fail(f"families reference {name}: non-finite on the card")
+            worst = max(worst, (a - c.cpu()).abs().max().item())
+        e_aux = (abs(aux["cpu"].item() - aux["cuda"].item()) if aux
+                 else 0.0)
+        print(f"families reference: reduced {name} f32, card vs CPU plain: "
+              f"max_abs_err={worst:.3e}, aux err {e_aux:.3e}; launches "
+              f"flash_attention {launches[0]}, flash_decode {launches[1]}")
+        if not worst <= TOL["float32"]:
+            fail(f"families reference {name}: card and CPU disagree by "
+                 f"{worst}")
+        if not e_aux <= AUX_TOL:
+            fail(f"families reference {name}: aux loss err {e_aux}")
+        if not min(launches) > 0:
+            fail(f"families reference {name}: launches {launches}")
+
+
+def _row_err(got, want) -> float:
+    """The largest over output rows (one query's last-dim values) of
+    |got - want|_2 / |want|_2."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _fam_attn_inputs(gen, B, H, Kh, Sq, Sk, hd, dtype):
+    import torch
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
+    k = torch.randn((B, Sk, Kh, hd), generator=gen, device="cuda")
+    v = torch.randn((B, Sk, Kh, hd), generator=gen, device="cuda")
+    return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
+
+
+def _fam_decode_inputs(gen, B, H, Kh, W, hd, L, mask, dtype):
+    """q, the L layers' (k, v) cache views and the validity mask: all
+    valid, or a ring with random holes."""
+    import torch
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((L, B, W, Kh, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((L, B, W, Kh, hd), generator=gen, device="cuda").to(dtype)
+    if mask == "all":
+        valid = torch.ones((B, W), dtype=torch.int32, device="cuda")
+    else:
+        valid = torch.randint(0, 2, (B, W), generator=gen, device="cuda",
+                              dtype=torch.int32)
+    views = [(k[l].permute(0, 2, 1, 3), v[l].permute(0, 2, 1, 3))
+             for l in range(L)]
+    return q, views, valid
+
+
+def _fam_errors(kernel, ins, causal=None, win=None):
+    """(max abs err, ``_row_err``) of one flash_attention (q, k, v) or
+    flash_decode (q, k, v, valid) call against its plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    if kernel == "flash_attention":
+        got = FA.flash_attention(*ins, causal=causal, sliding_window=win)
+        want = FA.attention_ref(*ins, causal=causal, sliding_window=win)
+    else:
+        got = FD.flash_decode(*ins)
+        want = FD.decode_ref(*ins)
+    torch.cuda.synchronize()
+    return (got.float() - want.float()).abs().max().item(), _row_err(got,
+                                                                     want)
+
+
+def _fam_held(name: str, e_abs: float, e_row: float) -> bool:
+    """f32 within TOL; bf16 within TOL and FAM_ROW_TOL."""
+    return e_abs <= TOL[name] and (name == "float32" or e_row <= FAM_ROW_TOL)
+
+
+# (label, B, H, Kh, Sq, Sk, hd, window, causal)
+FAM_ATTN = (
+    ("mixtral prefill, window 4096", 1, 32, 8, 4608, 4608, 128, 4096, True),
+    ("llava g=7", 2, 56, 8, 1088, 1088, 128, None, True),
+    ("whisper cross", 4, 12, 12, 448, 1500, 64, None, False),
+    ("whisper encoder", 4, 12, 12, 1500, 1500, 64, None, False),
+)
+# (label, B, H, Kh, W, hd, layers cycled, mask)
+FAM_DECODE = (
+    ("mixtral ring", 4, 32, 8, 4096, 128, 8, "ring"),
+    ("whisper cross", 4, 12, 12, 1500, 64, 12, "all"),
+)
+
+
+def phase_families_parity():
+    """Both attention kernels at the new families' shapes against their
+    plain versions, f32 within 1e-4 and bf16 within 2e-2 absolute and
+    ``FAM_ROW_TOL`` of each output row: the forward at hd 128 over S 4608
+    with mixtral's window of 4096, at g = 7 (llava), whisper's non-causal
+    cross-attention (Sq 448, Sk 1500) and encoder (S 1500); the decode
+    over mixtral's 4096-slot ring (holes, g = 4) and over whisper's 1500
+    cross keys, all valid (g = 1). Then each timed in bf16 beside its
+    plain version, SDPA and its bound; returns the rows."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = []
+    for label, B, H, Kh, Sq, Sk, hd, win, causal in FAM_ATTN:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v = _fam_attn_inputs(gen, B, H, Kh, Sq, Sk, hd, dtype)
+            err, row = _fam_errors("flash_attention", (q, k, v), causal, win)
+            print(f"parity flash_attention {name} {label} (B={B} H={H} "
+                  f"Kh={Kh} Sq={Sq} Sk={Sk} hd={hd} window={win} "
+                  f"causal={causal}): max_abs_err={err:.3e}, largest row "
+                  f"error {row:.3e}")
+            if not _fam_held(name, err, row):
+                fail(f"flash_attention {name} {label}: err {err}, row {row}")
+        shape = (f"B={B} H={H} Kh={Kh} Sq={Sq} Sk={Sk} hd={hd} bf16 "
+                 f"{'causal' if causal else 'not causal'}"
+                 f"{f' window {win}' if win else ''} ({label})")
+        rows.append(_attn_row(q, k, v, causal, win, err, shape))
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, B, H, Kh, W, hd, L, mask in FAM_DECODE:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, views, valid = _fam_decode_inputs(gen, B, H, Kh, W, hd, L,
+                                                 mask, dtype)
+            err, row = _fam_errors("flash_decode", (q, *views[0], valid))
+            print(f"parity flash_decode {name} {label} (B={B} H={H} Kh={Kh}"
+                  f" W={W} hd={hd}, {mask}): max_abs_err={err:.3e}, largest "
+                  f"row error {row:.3e}")
+            if not _fam_held(name, err, row):
+                fail(f"flash_decode {name} {label}: err {err}, row {row}")
+        rows.append(_decode_row(q, views, valid, err,
+                                f"B={B} H={H} Kh={Kh} W={W} hd={hd} bf16 "
+                                f"({label}, {L} layers' caches cycled)"))
+        del q, views, valid
+        torch.cuda.empty_cache()
+    for r in rows:
+        print_timing(r)
+    return rows
+
+
+# faults planted in the bf16 kernels' sources (``--planted``): the last
+# partial key tile dropped, the window one key wider
+PLANTED = {
+    "flash_attention": {
+        "tail_dropped": [("int kt_end = (Sk + BKV - 1) / BKV;",
+                          "int kt_end = Sk / BKV;")],
+        "window_plus_one": [("(window > 0 && qpos - kpos >= window))",
+                             "(window > 0 && qpos - kpos > window))")],
+    },
+    "flash_decode": {
+        "tail_dropped": [("const int ntiles = (a.W + TILE - 1) / TILE;",
+                          "const int ntiles = a.W / TILE;")],
+    },
+}
+
+
+def planted() -> int:
+    """The bf16 check of the families' shapes against faults planted in
+    the kernels' sources: each variant of ``PLANTED`` is compiled
+    (``tools/source_variants.py``) and swapped in for the wrapper's bf16
+    entry point, and must fail ``FAM_ROW_TOL`` at one shape at least;
+    each shape's reading under TOL's absolute 2e-2 is printed beside.
+    The kernels as built must hold both."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from source_variants import build_variants
+
+    bf16 = torch.bfloat16
+    main_fns = {"flash_attention": FA._kernel("flash_attention", bf16),
+                "flash_decode": FD._kernel(bf16)}
+
+    def swap(kernel, fn):
+        if kernel == "flash_attention":
+            FA._fns["flash_attention"][bf16] = fn
+        else:
+            FD._lib[bf16] = fn
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    cases = {"flash_attention": [
+        (label, _fam_attn_inputs(gen, B, H, Kh, Sq, Sk, hd, bf16),
+         causal, win)
+        for label, B, H, Kh, Sq, Sk, hd, win, causal in FAM_ATTN],
+        "flash_decode": []}
+    for label, B, H, Kh, W, hd, _, mask in FAM_DECODE:
+        q, views, valid = _fam_decode_inputs(gen, B, H, Kh, W, hd, 1, mask,
+                                             bf16)
+        cases["flash_decode"].append((label, (q, *views[0], valid), None,
+                                      None))
+    caught = {}
+    for kernel, edits in PLANTED.items():
+        entry = f"{kernel}_bf16"
+        fns = {"as built": main_fns[kernel]}
+        for var, (fn, _) in build_variants(kernel, edits, entry,
+                                           lambda log: None).items():
+            fn.argtypes = main_fns[kernel].argtypes
+            fn.restype = ctypes.c_int
+            fns[var] = fn
+        for var, fn in fns.items():
+            swap(kernel, fn)
+            missed = []
+            for label, ins, causal, win in cases[kernel]:
+                e_abs, e_row = _fam_errors(kernel, ins, causal, win)
+                held = _fam_held("bfloat16", e_abs, e_row)
+                old = "within" if e_abs <= TOL["bfloat16"] else "past"
+                print(f"planted {kernel} {var}, {label}: max_abs_err="
+                      f"{e_abs:.3e} ({old} 2e-2 alone), largest row error "
+                      f"{e_row:.3e} ({'holds' if held else 'fails'} the "
+                      f"check)")
+                if not held:
+                    missed.append(label)
+            caught[f"{kernel} {var}"] = missed
+        swap(kernel, main_fns[kernel])
+    print(json.dumps({"planted": caught, "row_tol": FAM_ROW_TOL}))
+    for var, missed in caught.items():
+        if var.endswith("as built") and missed:
+            fail(f"planted: {var} fails the check at {missed}")
+        if not var.endswith("as built") and not missed:
+            fail(f"planted: {var} holds the check at every shape")
+    print("planted: every planted fault fails the bf16 check, the kernels "
+          "as built hold it")
+    return 0
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _build(name: str, layers=None):
+    """(api, params): ``name`` at full width, bf16, ``layers`` deep
+    (default: whole), random weights from a seeded generator."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.utils import tree_flatten
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_flatten(params)[1])
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_flatten(params)[1])
+    print(f"{name}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"/ {cfg.n_kv_heads} KV, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {cfg.n_layers} layers"
+          f"{f' of {get_config(name).n_layers}' if layers else ''}: {n} "
+          f"parameters, {nbytes / 1e9:.2f} GB, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return api, params
+
+
+def _fam_profile(label: str, fn) -> dict:
+    """One call of ``fn`` under the profiler with its attention and MoE
+    layers marked (``fam.`` ranges): host wall against device busy, and
+    the device time of the ranges and of the port's attention kernels. A
+    profile counts only if it holds as many launches of each attention
+    kernel as the wrappers counted in that call; after ``PROFILE_TRIES``
+    that do not, the run fails. The ranges wrap the model's functions
+    for the profiled call only: a range in the model itself would cost
+    every decode step its host time."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    saved = {}
+
+    def mark(mod, fname, rng):
+        f = getattr(mod, fname)
+        saved[(mod, fname)] = f
+
+        def run(*a, **k):
+            with torch.profiler.record_function(rng):
+                return f(*a, **k)
+        setattr(mod, fname, run)
+    mark(MOE, "moe_apply", "fam.moe")
+    mark(TF, "mlp_apply", "fam.mlp")
+    mark(ED, "mlp_apply", "fam.mlp")
+    for fname in ("attention", "decode_attention", "cross_attention"):
+        mark(A, fname, "fam.attention")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(1, PROFILE_TRIES + 1):
+            _zero_launches()
+            wall, busy, spans, by_name, prof = profile_ranges(
+                fn, ranges=("fam.",))
+            # the wrappers' launches in this call, each of which the
+            # profile must hold
+            want = _launches()
+            names = [n for n, _ in cuda_kernels(prof)]
+            seen = {k: sum(any(m in n for m in marks) for n in names)
+                    for k, marks in FAM_KERNELS.items()}
+            if busy > 0 and spans and seen == want:
+                break
+            print(f"_fam_profile: profile {attempt} of {PROFILE_TRIES} of "
+                  f"{label} recorded launches {seen}, ranges "
+                  f"{sorted(spans)}; the wrappers launched {want}")
+        else:
+            fail(f"{label}: {PROFILE_TRIES} profiles lost their records")
+    finally:
+        for (mod, fname), f in saved.items():
+            setattr(mod, fname, f)
+    attn = sum(v for k, v in by_name.items()
+               if any(m in k for m in PORT_KERNELS["attention"]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    parts = "; ".join(f"{k} x{v['count']} device {v['device_ms']:.3f} ms"
+                      for k, v in sorted(spans.items()))
+    print(f"profile {label}: host wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%), port attention "
+          f"kernels {attn:.3f} ms; {parts}; top: "
+          + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    with open(os.path.join(HERE, "chiprun_out", "families_profile.txt"),
+              "a") as f:
+        f.write(f"== {label}: wall {wall:.4f} ms, busy {busy:.4f} ms\n"
+                f"{json.dumps(spans, indent=1)}\n"
+                + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top) + "\n\n")
+    return {"wall_ms": wall, "busy_ms": busy}
+
+
+# the CUDA functions one call of each attention wrapper launches once
+FAM_KERNELS = {"flash_attention": ("attn_kernel",) + ATTN_FWD_BF16,
+               "flash_decode": DECODE}
+
+
+def _launches():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    return {"flash_attention": FA.flash_attention.launches,
+            "flash_decode": FD.flash_decode.launches}
+
+
+def _zero_launches() -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    torch.cuda.synchronize()
+    FA.flash_attention.launches = 0
+    FD.flash_decode.launches = 0
+
+
+def phase_mixtral_serve() -> dict:
+    """mixtral-8x7b at full width, 8 of 32 layers, bf16, through
+    ``ServeEngine`` (4 slots, window 4096 = its sliding window, so the
+    cache is a 4096-slot ring): 8 prompts of 512..4000 tokens through
+    bulk KV admission, 64 new tokens each, and one of 4000 tokens with 160
+    new, whose decode wraps the ring. Every request drained with
+    in-vocabulary tokens, 9 bulk admissions, both kernels launched, the
+    ring wrapped; a profiled decode step and admission prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    api, params = _build(MIXTRAL, FAM_DEPTH[MIXTRAL])
+    cfg = api.cfg
+    eng = ServeEngine(api, params, batch=4, window=4096)
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(512, 4001, 8)] + [4000]
+    max_new = [64] * 8 + [160]
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new=m)
+            for i, (n, m) in enumerate(zip(lengths, max_new))]
+    for r in reqs:
+        eng.submit(r)
+    spent = [0.0]
+    bulk = eng._admit_bulk
+
+    def timed(*args):
+        t = time.perf_counter()
+        bulk(*args)
+        spent[0] += time.perf_counter() - t
+    eng._admit_bulk = timed
+    _zero_launches()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        fail("mixtral serve: not every request finished")
+    if not all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.out):
+        fail("mixtral serve: a token outside the vocabulary")
+    if not min(launches.values()) > 0:
+        fail(f"mixtral serve: a kernel was never launched: {launches}")
+    counters = eng.metrics.snapshot()["counters"]
+    if counters.get("serve.admit.kv") != len(reqs):
+        fail(f"mixtral serve: admissions {counters}")
+    # the last request decoded past position 4096: its slot's ring holds
+    # positions beyond the window
+    top = int(eng.state["layers"]["pos"].max())
+    if not 4096 <= top < lengths[-1] + max_new[-1]:
+        fail(f"mixtral serve: the ring did not wrap (largest position "
+             f"{top})")
+    dec = eng.metrics.snapshot()["hists"]["serve.decode.token_seconds"]
+    decoded = sum(len(r.out) - 1 for r in reqs)
+    print(f"mixtral serve: {MIXTRAL} full width, {cfg.n_layers} layers, "
+          f"bf16, batch 4, 4096-slot ring: {len(reqs)} requests (prompts "
+          f"{lengths}, {sum(lengths)} prompt tokens) in {wall:.3f} s: bulk "
+          f"admission {spent[0]:.3f} s ({sum(lengths) / spent[0]:.1f} prompt "
+          f"tok/s); {dec['count']} decode steps {dec['total']:.3f} s "
+          f"({1e3 * dec['total'] / dec['count']:.3f} ms/step, "
+          f"{decoded / dec['total']:.1f} tok/s); the ring wrapped (largest "
+          f"position {top}); launches {launches}; counters "
+          f"{ {k: v for k, v in counters.items() if 'admit' in k} }")
+    B = eng.batch
+    tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    t = torch.full((B,), 4200, dtype=torch.int32, device="cuda")
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 4096)),
+                          device="cuda")
+    _fam_profile("mixtral decode step (batch 4, ring full)",
+                 lambda: api.decode_fn(params, eng.state,
+                                       {"token": tok, "t": t}))
+    _fam_profile("mixtral admission prefill 4x4096",
+                 lambda: api.prefill_full_fn(params, {"tokens": prompt}))
+    del eng, params, api
+    _free()
+    return launches
+
+
+def _prefill_then_decode(api, params, batch, n_dec, window, label):
+    """``prefill_full_fn`` over ``batch``, the prefill's KV of all but the
+    last position spliced into a decode state (enc-dec: its cross K/V,
+    the decoder's prompt decoded from position 0), the last prompt token
+    decoded through the cache and held against the prefill's last logits
+    (relative L2, ``FAM_BF16_BOUND``; MoE excepted: a prefill token's
+    experts depend on its group's capacity), then ``n_dec`` greedy decode
+    steps. Returns (the decode state, prefill s, decode s a step,
+    launches)."""
+    import torch
+    cfg = api.cfg
+    B, S = batch["tokens"].shape
+    _zero_launches()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill_full_fn(params, batch)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    n = logits.shape[1]
+    if tuple(logits.shape) != (B, n, cfg.vocab_size) \
+            or not torch.isfinite(logits[:, -1].float()).all():
+        fail(f"{label}: prefill logits {tuple(logits.shape)} not finite")
+    state = api.init_decode_state(B, window, "cuda")
+    if cfg.is_encdec:
+        state["cross_k"].copy_(caches["cross_k"])
+        state["cross_v"].copy_(caches["cross_v"])
+        start = 0
+    else:
+        st = state["layers"]
+        for leaf in ("k", "v"):
+            st[leaf][:, :, :n - 1] = caches["layers"][leaf][:, :, :n - 1]
+        st["pos"][:, :, :n - 1] = torch.arange(n - 1, dtype=torch.int32,
+                                               device="cuda")
+        start = n - 1
+    del caches
+    tok = batch["tokens"][:, 0 if cfg.is_encdec else -1]
+    rel = None
+    for i in range(start, n):
+        t = torch.full((B,), i, dtype=torch.int32, device="cuda")
+        lg, state = api.decode_fn(params, state, {"token": tok, "t": t})
+        if cfg.is_encdec and i + 1 < n:
+            tok = batch["tokens"][:, i + 1]
+    if cfg.family != "moe":
+        rel = _rel_l2(lg, logits[:, -1])
+        if not rel <= FAM_BF16_BOUND:
+            fail(f"{label}: decode through the cache vs prefill logits "
+                 f"relative L2 {rel}")
+    del logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n, n + n_dec):
+        tok = torch.argmax(lg, dim=-1)
+        t = torch.full((B,), i, dtype=torch.int32, device="cuda")
+        lg, state = api.decode_fn(params, state, {"token": tok, "t": t})
+        if not torch.isfinite(lg.float()).all():
+            fail(f"{label}: non-finite decode logits at position {i}")
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n_dec
+    launches = _launches()
+    if not min(launches.values()) > 0:
+        fail(f"{label}: a kernel was never launched: {launches}")
+    rel_s = "not compared (MoE capacity)" if rel is None else f"{rel:.3e}"
+    print(f"{label}: prefill {B}x{n} positions {1e3 * t_pre:.3f} ms, "
+          f"decode {1e3 * t_dec:.3f} ms a step ({n_dec} steps, batch {B}); "
+          f"last prompt token through the cache vs prefill logits relative "
+          f"L2 {rel_s} (bound {FAM_BF16_BOUND}); launches {launches}")
+    return state, t_pre, t_dec, launches
+
+
+def phase_whisper() -> dict:
+    """whisper-small whole (12 + 12 layers), bf16: 4 requests of 1500
+    frames, the prefill (encode, then the decoder over a 4-token prompt)
+    through ``prefill_full_fn``, its cross K/V copied into the decode
+    state, the prompt decoded from position 0 (the last token's logits
+    against the prefill's), then 64 greedy decode tokens each; encode
+    timed alone; a profiled decode step."""
+    import torch
+    from repro_torch.models import encdec
+
+    api, params = _build(WHISPER)
+    cfg = api.cfg
+    batch = _family_batch(api, 4, 4, seed=6)
+    encdec.encode(cfg, params, batch["frames"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encdec.encode(cfg, params, batch["frames"])
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    if tuple(enc.shape) != (4, 1500, cfg.d_model) \
+            or not torch.isfinite(enc.float()).all():
+        fail(f"whisper: encoder output {tuple(enc.shape)}")
+    del enc
+    state, _, t_dec, launches = _prefill_then_decode(
+        api, params, batch, 64, 128, "whisper")
+    tok = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    t = torch.full((4,), 60, dtype=torch.int32, device="cuda")
+    prof = _fam_profile("whisper decode step (batch 4, 1500 cross keys)",
+                        lambda: api.decode_fn(params, state,
+                                              {"token": tok, "t": t}))
+    print(f"whisper: encode 4x1500 frames {1e3 * t_enc:.3f} ms, decode "
+          f"{1e3 * t_dec:.3f} ms a step, device busy "
+          f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of a profiled "
+          f"step")
+    del state, params, api
+    _free()
+    return launches
+
+
+def phase_llava() -> dict:
+    """llava-next-34b at full width, 16 of 60 layers, bf16: 2 requests of
+    576 patch embeddings + 512 tokens through ``prefill_full_fn``, the
+    KV of the first 1087 positions spliced into the decode state, the
+    last prompt token decoded at 1087 (against the prefill's logits),
+    then 32 greedy steps from position 1088; a profiled decode step."""
+    import torch
+
+    api, params = _build(LLAVA, FAM_DEPTH[LLAVA])
+    batch = _family_batch(api, 2, 576 + 512, seed=7)
+    state, t_pre, t_dec, launches = _prefill_then_decode(
+        api, params, batch, 32, 1152, "llava")
+    tok = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    t = torch.full((2,), 1100, dtype=torch.int32, device="cuda")
+    prof = _fam_profile("llava decode step (batch 2, 1100 positions)",
+                        lambda: api.decode_fn(params, state,
+                                              {"token": tok, "t": t}))
+    print(f"llava: prefill 2x(576+512) {1e3 * t_pre:.3f} ms, decode "
+          f"{1e3 * t_dec:.3f} ms a step, device busy "
+          f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of a profiled "
+          f"step")
+    del state, params, api
+    _free()
+    return launches
+
+
+def phase_config_sweep() -> dict:
+    """llama4-scout (2 of 48 layers), qwen2-72b (4 of 80), granite-3-2b
+    and qwen2.5-3b (whole), full width, bf16: one prefill of 1024 tokens
+    and 8 decode steps each, finite logits, both kernels launched (the
+    dense configs' last prompt token through the cache against the
+    prefill's logits). Each model is freed before the next is built."""
+    total = {"flash_attention": 0, "flash_decode": 0}
+    for name in (LLAMA4, "qwen2-72b", "granite-3-2b", "qwen2.5-3b"):
+        api, params = _build(name, FAM_DEPTH.get(name))
+        batch = _family_batch(api, 1, 1024, seed=8)
+        state, _, _, launches = _prefill_then_decode(
+            api, params, batch, 8, 1040, f"sweep {name}")
+        for k, v in launches.items():
+            total[k] += v
+        del state, params, api, batch
+        _free()
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2232,10 +2922,21 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     phase_build()
+    if sys.argv[1:] == ["--planted"]:
+        return planted()
     rows = phase_parity()
     rows += phase_train_parity()
     rows += phase_hybrid_parity()
+    # before the training phases: after their profiles torch.profiler
+    # loses most short sessions' records (PERF.md section 7)
+    rows += phase_xlstm_parity()
+    rows += phase_families_parity()
     phase_reference()
+    # the families' profiles too run before the training phases'
+    phase_families_reference()
+    families = {"mixtral_serve": phase_mixtral_serve(),
+                "whisper": phase_whisper(), "llava": phase_llava(),
+                "config_sweep": phase_config_sweep()}
     phase_train_reference()
     phase_hybrid_reference()
     phase_hybrid_cross_f32()
@@ -2251,7 +2952,6 @@ def main() -> int:
     del api, params
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase_xlstm_parity()
     phase_xlstm_reference()
     phase_xlstm_cross_f32()
     api, params, by_path["xlstm_prefill"] = phase_xlstm_prefill()
@@ -2261,6 +2961,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_pipeline_reference()
     by_path["pipeline"] = phase_pipeline_train()
+    by_path.update(families)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}

@@ -1,0 +1,16 @@
+"""mixtral-8x7b [moe] — 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=32000, 8 experts top-2, sliding-window attention (4096)
+[arXiv:2401.04088; hf]."""
+from ..models.registry import register
+from .base import ModelConfig
+
+
+@register("mixtral-8x7b")
+def mixtral_8x7b() -> ModelConfig:
+    return ModelConfig(
+        name="mixtral-8x7b", family="moe",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+        d_ff=14336, vocab_size=32000,
+        n_experts=8, top_k=2, sliding_window=4096,
+        rope_theta=1e6,
+    )

@@ -7,18 +7,23 @@ initialise parameters with the reference and move them across as numpy;
 the reference's tree layout for comparison.
 The port keeps the reference's parameter tree and its ``(in, out)``
 linear layout (``x @ w``), so the mapping is name for name with no
-transposes, for every ported family: dense ``blocks/{ln1, ln2,
+transposes, for every family: dense and VLM ``blocks/{ln1, ln2,
 attn/{wq, wk, wv, wo[, bq, bk, bv]}, mlp/{gate, up, down}}`` stacked on
-the layer dim; plain ssm ``blocks/{ln1, ssm/{in_proj, conv_w, A_log, D,
-dt_bias, out_proj, norm_w}}`` stacked (L, ...); hybrid the same blocks
-stacked (G, k, ...) plus ``shared/{ln1, ln2, attn, mlp}``; xLSTM
+the layer dim; MoE the same with ``moe/{router, gate, up, down}`` in
+place of ``mlp`` (router (L, D, E), experts (L, E, D, F) and
+(L, E, F, D)); enc-dec ``enc_blocks/{ln1, ln2, attn, mlp}``,
+``dec_blocks/{ln1, lnx, ln2, attn, xattn, mlp}``, ``enc_norm`` and an
+untied ``lm_head``; plain ssm ``blocks/{ln1, ssm/{in_proj, conv_w,
+A_log, D, dt_bias, out_proj, norm_w}}`` stacked (L, ...); hybrid the
+same blocks stacked (G, k, ...) plus ``shared/{ln1, ln2, attn, mlp}``;
+xLSTM
 ``blocks/{m_ln, mlstm/{up, wq, wk, wv, wi, wf, fb, norm_w, down}}``
 stacked (G, k-1, ...) and ``blocks/{s_ln, slstm/{wx, wr, b, norm_w,
 down}}`` stacked (G, ...); and ``embed``, ``final_norm`` (``lm_head``
 when untied). Each leaf takes the dtype of the port's ``param_spec``
 (``cfg.dtype``; ``A_log``, ``D``, ``dt_bias``, the mLSTM gates ``wi``,
-``wf``, ``fb`` and the sLSTM bias ``b`` stay f32, as the reference keeps
-them).
+``wf``, ``fb``, the sLSTM bias ``b`` and the MoE router stay f32, as
+the reference keeps them).
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .models import transformer
+from .models.registry import ModelAPI
 from .optim import OptState
 from .utils import tree_map
 
@@ -50,14 +55,16 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
             raise ValueError(f"parameter {path}: shape {a.shape} != "
                              f"{tuple(spec.shape)}")
         return torch.tensor(a, dtype=spec.dtype, device=device)
-    return walk(transformer.param_spec(cfg), tree, "")
+    return walk(ModelAPI(cfg).param_spec(), tree, "")
 
 
 def params_to_numpy(params: Dict, cfg: ModelConfig) -> Dict:
     """The port's parameters as the reference's tree of numpy arrays
     (f32; the same keys and shapes as ``params_from_jax`` takes)."""
-    transformer.param_spec(cfg)          # raises for an unported family
-    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+    out = tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+    # the inverse mapping checks the tree against cfg's parameter spec
+    params_from_jax(out, cfg, device="meta")
+    return out
 
 
 def opt_state_from_jax(state, cfg: ModelConfig, device="cuda") -> OptState:

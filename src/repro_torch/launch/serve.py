@@ -3,8 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --reduced --requests 8 --max-new 16
 
-Runs on the GPU by default; ``--device cpu`` runs the kernels' plain
-versions (tests).
+``--arch`` takes any registered architecture (``configs.ALL_ARCHS``).
+Dense and MoE prompts are admitted in bulk through one padded prefill,
+the recurrent families through a length-masked decode pass, enc-dec and
+the VLM backbone token by token from a zero state (no frames or
+patches), as the reference's engine does. Runs on the GPU by default;
+``--device cpu`` runs the kernels' plain versions (tests).
 """
 from __future__ import annotations
 
@@ -14,13 +18,14 @@ import time
 import numpy as np
 import torch
 
-from ..models.registry import get_api, get_config
+from ..models.registry import available, get_api, get_config
 from ..serve.engine import Request, ServeEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help=f"one of {', '.join(available())}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

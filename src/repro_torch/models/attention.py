@@ -1,7 +1,7 @@
 """GQA attention: prefill (full or sliding-window causal) through the
-flash-attention kernel, and one-token decode over a KV cache through the
-flash-decode kernel. Port of ``repro/models/attention.py``
-(``cross_attention`` waits for the enc-dec slice).
+flash-attention kernel, one-token decode over a KV cache through the
+flash-decode kernel, and the enc-dec's cross-attention through both.
+Port of ``repro/models/attention.py``.
 
 The KV cache is a dict {"k","v","pos"}: k/v (B, W, kvH, hd) and pos
 (B, W) holding the *absolute* position stored in each slot (-1 = empty).
@@ -11,6 +11,13 @@ A full cache has W = max_seq; a sliding-window cache is a ring buffer
 Unlike the JAX package, ``decode_attention`` updates the cache IN PLACE
 (PyTorch tensors are mutable; a functional update would copy the whole
 cache every step) and returns the same tensors.
+
+Cross-attention is position-free (no RoPE) over the encoder's K/V. The
+reference computes it as a plain softmax in ``jnp``; here it goes
+through the port's own kernels, as self-attention does: several query
+rows (the teacher-forced decoder) through ``flash_attention`` with
+``causal=False`` and Sq != Sk, one query row (a decode step) through
+``flash_decode`` with every encoder key valid.
 """
 from __future__ import annotations
 
@@ -144,3 +151,42 @@ def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
     o = flash_decode(q[:, 0], cache["k"].permute(0, 2, 1, 3),
                      cache["v"].permute(0, 2, 1, 3), valid.to(torch.int32))
     return o.reshape(B, 1, n_heads * head_dim) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec); encoder output is position-free (no rope)
+# ---------------------------------------------------------------------------
+def cross_attention(p: Dict, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor], *,
+                    n_heads: int, n_kv_heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """x: (B,S,D) decoder rows; enc_kv: k, v (B,S_enc,Kh,hd) from
+    ``cross_kv``. Every query attends over every encoder position."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.view(B, S, n_heads, head_dim)
+    k, v = (t.transpose(1, 2) for t in enc_kv)        # (B,Kh,S_enc,hd)
+    if S == 1:
+        valid = torch.ones((B, k.shape[2]), dtype=torch.int32,
+                           device=x.device)
+        o = flash_decode(q[:, 0], k, v, valid)
+    else:
+        o = flash_attention(q.transpose(1, 2), k, v,
+                            causal=False).transpose(1, 2)
+    return o.reshape(B, S, n_heads * head_dim) @ p["wo"]
+
+
+def cross_kv(p: Dict, enc_out: torch.Tensor, *, n_kv_heads: int,
+             head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K/V, once per sequence (reused every decode step):
+    two (B,S_enc,Kh,hd)."""
+    B, S, _ = enc_out.shape
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return (k.view(B, S, n_kv_heads, head_dim),
+            v.view(B, S, n_kv_heads, head_dim))

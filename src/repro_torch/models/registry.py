@@ -1,13 +1,17 @@
 """Model API and the port's own config registry.
 
 Port of ``repro/models/registry.py``. ``ModelAPI`` hides family
-differences behind init / loss / prefill / decode and the pipeline-stage
-functions (embed, a slice of the blocks, head); the input specs wait for
-the dry-run tooling (A.11). Only configs of the families the port has are
-registered: smollm-135m (dense), zamba2-7b (hybrid) and xlstm-125m
-(xLSTM: family ssm with sLSTM groups);
+differences behind init / loss / prefill / decode, the pipeline-stage
+functions (embed, a slice of the blocks, head) and the input specs of a
+benchmark cell. Every architecture of ``configs.ALL_ARCHS`` is
+registered (``configs/archs.py``); enc-dec (whisper-small) goes to
+``encdec.py``, every other family to ``transformer.py``.
 ``reduced(family="ssm", hybrid_attn_every=0)`` of the hybrid gives the
 plain-ssm family.
+
+The batch keys are the reference's: ``tokens`` (and ``targets``), plus
+``frames`` (B, enc_seq, D) for enc-dec and ``patches`` (B, n_vis, D)
+for the VLM backbone, whose loss reads the text positions only.
 """
 from __future__ import annotations
 
@@ -16,9 +20,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
-from ..utils import tree_flatten, tree_unflatten
-from . import transformer
+from ..configs.base import ModelConfig, ShapeConfig
+from ..utils import tree_flatten, tree_map, tree_unflatten
+from . import encdec, transformer
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -33,19 +37,34 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 class ModelAPI:
     cfg: ModelConfig
 
+    @property
+    def _stack(self):
+        """The module of this family's stack."""
+        return encdec if self.cfg.is_encdec else transformer
+
     # ------------------------------------------------------------- init
     def init_params(self, generator: torch.Generator, device="cuda"):
-        return transformer.init_params(self.cfg, generator, device)
+        return self._stack.init_params(self.cfg, generator, device)
 
     def param_spec(self):
         """The parameter tree as ``meta`` tensors (no allocation)."""
-        return transformer.param_spec(self.cfg)
+        return self._stack.param_spec(self.cfg)
+
+    def _forward(self, params, batch: Dict, **kw):
+        """(logits, aux, caches) of the family's full forward."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return encdec.forward(cfg, params, batch["tokens"],
+                                  batch["frames"], **kw)
+        return transformer.forward(cfg, params, batch["tokens"],
+                                   patches=batch.get("patches"), **kw)
 
     # ------------------------------------------------------------- train
     def loss_fn(self, params, batch: Dict, *, remat: bool = False
                 ) -> Tuple[torch.Tensor, Dict]:
-        logits, aux, _ = transformer.forward(self.cfg, params,
-                                             batch["tokens"], remat=remat)
+        logits, aux, _ = self._forward(params, batch, remat=remat)
+        if self.cfg.family == "vlm":
+            logits = logits[:, self.cfg.vision_tokens:]   # text positions
         loss = _xent(logits, batch["targets"])
         total = loss + 0.01 * aux
         return total, {"loss": loss, "aux": aux}
@@ -98,9 +117,10 @@ class ModelAPI:
         Length-bucketed admission pads prompts up to a shared bucket
         length; causality keeps positions below the true prompt length
         unaffected, so the serving engine reads each request's next
-        token at its own ``len - 1`` instead of the padded tail."""
-        logits, _, caches = transformer.forward(
-            self.cfg, params, batch["tokens"], want_cache=True)
+        token at its own ``len - 1`` instead of the padded tail. Enc-dec's
+        caches are the cross K/V ``{"cross_k", "cross_v"}``; the VLM's
+        logits cover the patches' positions too."""
+        logits, _, caches = self._forward(params, batch, want_cache=True)
         return logits, caches
 
     def prefill_fn(self, params, batch: Dict):
@@ -111,7 +131,7 @@ class ModelAPI:
         """One decode step; updates ``state`` in place and returns
         (logits, state). An optional ``batch["live"]`` (B,) bool freezes
         the rows where it is False."""
-        return transformer.decode_step(self.cfg, params, state,
+        return self._stack.decode_step(self.cfg, params, state,
                                        batch["token"], batch["t"],
                                        batch.get("live"))
 
@@ -140,21 +160,66 @@ class ModelAPI:
         return nxt, state
 
     def init_decode_state(self, batch: int, window: int, device="cuda"):
-        return transformer.init_decode_state(self.cfg, batch, window,
+        return self._stack.init_decode_state(self.cfg, batch, window,
                                              device)
+
+    def decode_state_spec(self, batch: int, window: int):
+        """The decode state as ``meta`` tensors (no allocation)."""
+        return tree_map(lambda s: torch.empty(s[0], dtype=s[1],
+                                              device="meta"),
+                        self._stack.decode_state_shapes(self.cfg, batch,
+                                                        window))
 
     def decode_state_bdims(self, batch: int, window: int):
         """Per-leaf index of the decode state's BATCH dim, found by
         diffing the state's shapes at two batch sizes."""
-        s1 = transformer.decode_state_shapes(self.cfg, batch, window)
-        s2 = transformer.decode_state_shapes(self.cfg, batch + 1, window)
+        return tree_map(
+            lambda a, b: next(i for i, (x, y) in enumerate(zip(a.shape,
+                                                               b.shape))
+                              if x != y),
+            self.decode_state_spec(batch, window),
+            self.decode_state_spec(batch + 1, window))
 
-        def diff(a, b):
-            if isinstance(a, dict):
-                return {k: diff(a[k], b[k]) for k in a}
-            return next(i for i, (x, y) in enumerate(zip(a[0], b[0]))
-                        if x != y)
-        return diff(s1, s2)
+    # ------------------------------------------------------------- specs
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """``meta`` tensors standing in for the step inputs of a cell."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def f(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        if shape.kind == "decode":
+            return {"token": f(B), "t": f(B)}
+        dt = getattr(torch, cfg.dtype)
+        specs: Dict = {}
+        if cfg.family == "vlm":
+            n_vis = cfg.vision_tokens
+            specs["patches"] = f(B, n_vis, cfg.d_model, dtype=dt)
+            S -= n_vis
+        if cfg.is_encdec:
+            specs["frames"] = f(B, cfg.encoder_seq, cfg.d_model, dtype=dt)
+        specs["tokens"] = f(B, S)
+        if shape.kind == "train":
+            specs["targets"] = f(B, S)
+        return specs
+
+    def make_inputs(self, shape: ShapeConfig, seed: int = 0,
+                    device="cuda") -> Dict:
+        """Concrete random inputs matching ``input_specs``, from a
+        generator seeded with ``seed`` (smoke runs)."""
+        gen = torch.Generator(device).manual_seed(seed)
+        out = {}
+        for name, s in self.input_specs(shape).items():
+            if s.dtype == torch.int32:
+                hi = (self.cfg.vocab_size
+                      if name in ("tokens", "targets", "token")
+                      else shape.seq_len)
+                out[name] = torch.randint(0, hi, s.shape, generator=gen,
+                                          dtype=torch.int32, device=device)
+            else:
+                out[name] = torch.randn(s.shape, generator=gen,
+                                        device=device).to(s.dtype)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -189,5 +254,4 @@ def get_api(name_or_cfg) -> ModelAPI:
 
 
 def _load_all():
-    from ..configs import (smollm_135m, xlstm_125m,  # noqa: F401
-                           zamba2_7b)                # (register)
+    from ..configs import archs  # noqa: F401  (registers all configs)

@@ -1,8 +1,9 @@
-"""Decoder stacks of the dense, plain-ssm, hybrid (zamba2) and xLSTM
-families. Port of those branches of ``repro/models/transformer.py``:
-``init_params``, ``param_spec``, ``forward`` (training with optional
-remat, and the prefill -> decode cache handoff), the decode state and
-``decode_step``.
+"""Decoder stacks of every decoder-only family: dense, MoE, the VLM
+backbone, plain ssm, hybrid (zamba2) and xLSTM. Port of
+``repro/models/transformer.py``: ``init_params``, ``param_spec``,
+``forward`` (training with optional remat, and the prefill -> decode
+cache handoff), the decode state and ``decode_step``. The
+encoder-decoder family lives in ``encdec.py``.
 
 The reference scans stacked per-layer parameters with ``lax.scan``; here
 a Python loop walks the same stacked tensors layer by layer (unbound
@@ -14,8 +15,13 @@ caches are stacked per application, (G, ...). xLSTM (family ssm with
 and one sLSTM block, parameters stacked (G, k-1, ...) and (G, ...).
 ``remat`` checkpoints one scan element (a layer, or a group) as
 ``jax.checkpoint(body)`` does: only its input is kept and the backward
-recomputes it. Other families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+recomputes it.
+
+MoE layers replace the MLP with ``moe.moe_apply``; their load-balancing
+losses are summed over the layers into ``forward``'s aux. The VLM
+backbone is the dense stack over ``[patches; tokens]``: ``forward``
+prepends the (B, n_vis, D) patch embeddings (the vision frontend is a
+stub, as in the reference).
 
 The pipeline-stage split (``pipeline_exec``): ``embed_tokens`` (the
 input side), ``forward_stage`` (a contiguous slice of the stacked
@@ -39,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..utils import tree_leaves
 from . import attention as A
+from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm as XL
 from .layers import (embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm,
@@ -46,24 +53,20 @@ from .layers import (embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm,
 
 Params = Dict
 
-_PENDING = {
-    "moe": "ROADMAP A.8 (MoE)",
-    "vlm": "ROADMAP A.8 (VLM backbone)",
-    "audio": "ROADMAP A.8 (enc-dec)",
-}
+# the families whose layer is attention + MLP (or MoE)
+ATTN_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """Dense, plain-ssm, hybrid and xLSTM (family ssm with sLSTM
-    groups) decoders are ported; MoE, VLM and enc-dec are not."""
-    if cfg.is_encdec or cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
-            f"{_PENDING.get(cfg.family, 'ROADMAP')}")
+def _check_family(cfg: ModelConfig) -> None:
+    """The decoder-only families; enc-dec is ``encdec.py``'s."""
+    if cfg.is_encdec or cfg.family not in ATTN_FAMILIES + ("ssm",
+                                                           "hybrid"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"decoder-only stack")
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -100,23 +103,28 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device="cuda") -> Params:
     """Random parameters from ``gen`` (which must live on ``device``'s
     type), laid out like the reference's tree."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dt = _dt(cfg)
     L, D = cfg.n_layers, cfg.d_model
     p: Params = {"embed": embed_init(gen, cfg.vocab_size, D, dt, device),
                  "final_norm": torch.ones((D,), dtype=dt, device=device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab_size, D, dt, device)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         p["blocks"] = {
             "ln1": torch.ones((L, D), dtype=dt, device=device),
             "ln2": torch.ones((L, D), dtype=dt, device=device),
             "attn": A.attn_init(gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                 layers=L, dtype=dt, device=device,
                                 qkv_bias=cfg.qkv_bias),
-            "mlp": mlp_init(gen, D, cfg.d_ff, layers=L, dtype=dt,
-                            device=device),
         }
+        if cfg.family == "moe":
+            p["blocks"]["moe"] = MOE.moe_init(gen, D, cfg.d_ff,
+                                              cfg.n_experts, layers=L,
+                                              dtype=dt, device=device)
+        else:
+            p["blocks"]["mlp"] = mlp_init(gen, D, cfg.d_ff, layers=L,
+                                          dtype=dt, device=device)
         return p
     if cfg.slstm_every:
         G, k = _groups(cfg)
@@ -154,7 +162,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 def param_spec(cfg: ModelConfig) -> Params:
     """The parameter tree as ``meta`` tensors: shapes and dtypes of
     ``init_params``'s tree, nothing allocated."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dt = _dt(cfg)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     qd, kd = cfg.q_dim, cfg.kv_dim
@@ -173,10 +181,15 @@ def param_spec(cfg: ModelConfig) -> Params:
     p = {"embed": m(V, D), "final_norm": m(D)}
     if not cfg.tie_embeddings:
         p["lm_head"] = m(V, D)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         attn, mlp = attn_mlp(L)
-        p["blocks"] = {"ln1": m(L, D), "ln2": m(L, D), "attn": attn,
-                       "mlp": mlp}
+        p["blocks"] = {"ln1": m(L, D), "ln2": m(L, D), "attn": attn}
+        if cfg.family == "moe":
+            p["blocks"]["moe"] = {
+                n: m(L, *s, dtype=sdt) for n, (s, sdt) in
+                MOE.moe_param_shapes(D, F, cfg.n_experts, dt).items()}
+        else:
+            p["blocks"]["mlp"] = mlp
         return p
     if cfg.slstm_every:
         G, k = _groups(cfg)
@@ -231,41 +244,50 @@ def _attn(cfg: ModelConfig, p: Dict, hn: torch.Tensor,
                        sliding_window=cfg.sliding_window)
 
 
+def _ffn(cfg: ModelConfig, pl: Dict, hn: torch.Tensor):
+    """The layer's MLP, or its MoE layer: (y, aux or None)."""
+    if cfg.family == "moe":
+        return MOE.moe_apply(pl["moe"], hn, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             group_size=cfg.moe_group_size)
+    return mlp_apply(pl["mlp"], hn), None
+
+
 def _block(cfg: ModelConfig, pl: Dict, h: torch.Tensor,
            positions: torch.Tensor, shared: Optional[Dict]):
-    """One dense decoder layer: (h, k, v), k post-RoPE (the cache
-    handoff)."""
+    """One dense, VLM or MoE decoder layer: (h, k, v, aux), k post-RoPE
+    (the cache handoff), aux the MoE layer's loss (None for an MLP)."""
     a, k, v = _attn(cfg, pl["attn"], rmsnorm(h, pl["ln1"], cfg.norm_eps),
                     positions)
     h = h + a
-    h = h + mlp_apply(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
-    return h, k, v
+    y, aux = _ffn(cfg, pl, rmsnorm(h, pl["ln2"], cfg.norm_eps))
+    return h + y, k, v, aux
 
 
 def _ssm_block(cfg: ModelConfig, pl: Dict, h: torch.Tensor,
                positions: torch.Tensor, shared: Optional[Dict]):
-    """One Mamba2 layer: (h, None, None)."""
+    """One Mamba2 layer: (h, None, None, None)."""
     y = SSM.ssm_apply(pl["ssm"], rmsnorm(h, pl["ln1"], cfg.norm_eps),
                       **_ssm_kw(cfg))
-    return h + y, None, None
+    return h + y, None, None, None
 
 
 def _hybrid_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
                   positions: torch.Tensor, shared: Dict):
-    """k Mamba2 layers, then the shared attention+MLP block: (h, k, v)
-    of that application."""
+    """k Mamba2 layers, then the shared attention+MLP block: (h, k, v,
+    None), k and v of that application."""
     for pl in _unstack(pg, cfg.hybrid_attn_every):
         h = _ssm_block(cfg, pl, h, positions, None)[0]
     a, k, v = _attn(cfg, shared["attn"],
                     rmsnorm(h, shared["ln1"], cfg.norm_eps), positions)
     h = h + a
     h = h + mlp_apply(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps))
-    return h, k, v
+    return h, k, v, None
 
 
 def _xlstm_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
                  positions: torch.Tensor, shared: Optional[Dict]):
-    """k-1 mLSTM blocks, then the sLSTM block: (h, None, None)."""
+    """k-1 mLSTM blocks, then the sLSTM block: (h, None, None, None)."""
     k = cfg.slstm_every
     for pm in _unstack({"m_ln": pg["m_ln"], "mlstm": pg["mlstm"]}, k - 1):
         h = h + XL.mlstm_apply(pm["mlstm"],
@@ -273,27 +295,33 @@ def _xlstm_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
                                n_heads=cfg.n_heads)
     return h + XL.slstm_apply(pg["slstm"],
                               rmsnorm(h, pg["s_ln"], cfg.norm_eps),
-                              n_heads=cfg.n_heads), None, None
+                              n_heads=cfg.n_heads), None, None, None
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            remat: bool = False, want_cache: bool = False):
-    """Full-sequence forward. tokens: (B, S). Returns
-    (logits (B,S,V), aux_loss, caches|None); caches are
-    {"layers": {"k","v"}} stacked (L or G, B, S, Kh, hd), k post-RoPE —
-    {"layers": None} for the plain-ssm and xLSTM families, which have no
-    KV.
+            patches: Optional[torch.Tensor] = None, remat: bool = False,
+            want_cache: bool = False):
+    """Full-sequence forward. tokens: (B, S_txt). For the VLM backbone,
+    ``patches`` (B, n_vis, D) are prepended to the token embeddings.
+    Returns (logits (B,S,V), aux_loss, caches|None): aux the MoE layers'
+    summed load-balancing loss (an f32 zero for the other families);
+    caches {"layers": {"k","v"}} stacked (L or G, B, S, Kh, hd), k
+    post-RoPE — {"layers": None} for the plain-ssm and xLSTM families,
+    which have no KV.
     ``remat`` recomputes each scan element in the backward (training
     only)."""
-    _require_ported(cfg)
+    _check_family(cfg)
     if remat and want_cache:
         raise ValueError("forward: remat is for training; the cache "
                          "handoff is a serving path")
     h = embed_apply(params["embed"], tokens)
-    h, ks, vs = _walk(cfg, params["blocks"], h, params.get("shared"),
-                      remat=remat, want_cache=want_cache)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the VLM forward needs patches")
+        h = torch.cat([patches.to(h.dtype), h], dim=1)
+    h, aux, ks, vs = _walk(cfg, params["blocks"], h, params.get("shared"),
+                           remat=remat, want_cache=want_cache)
     logits = _head(cfg, params, h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = None
     if want_cache:
         caches = {"layers": ({"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -304,8 +332,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def _walk(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
           shared: Optional[Dict], *, remat: bool, want_cache: bool):
     """The stacked blocks (all of them, or a contiguous slice) over
-    ``h``, one scan element (a layer, or a group) at a time: (h, ks,
-    vs), the per-element caches when ``want_cache``."""
+    ``h``, one scan element (a layer, or a group) at a time: (h, aux,
+    ks, vs), aux the summed MoE losses (f32), the per-element caches
+    when ``want_cache``."""
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
@@ -314,20 +343,26 @@ def _walk(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
     elif cfg.slstm_every:
         body = _xlstm_group
     else:
-        body = _block if cfg.family == "dense" else _ssm_block
+        body = _block if cfg.family in ATTN_FAMILIES else _ssm_block
     n = {v.shape[0] for v in tree_leaves(blocks)}
     assert len(n) == 1, f"ragged scan axis: {n}"
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
     for pl in _unstack(blocks, n.pop()):
         if remat:
-            h = checkpoint(lambda x, p: body(cfg, p, x, positions, shared)[0],
-                           h, pl, use_reentrant=False)
-            continue
-        h, k, v = body(cfg, pl, h, positions, shared)
+            def run(x, p):
+                out = body(cfg, p, x, positions, shared)
+                return out[0], out[3]          # (h, aux)
+            h, a = checkpoint(run, h, pl, use_reentrant=False)
+            k = None
+        else:
+            h, k, v, a = body(cfg, pl, h, positions, shared)
+        if a is not None:
+            aux = aux + a
         if want_cache and k is not None:
             ks.append(k)
             vs.append(v)
-    return h, ks, vs
+    return h, aux, ks, vs
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +370,12 @@ def _walk(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 def embed_tokens(cfg: ModelConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """The input-side pipeline stage: tokens (B, S) -> h (B, S, D)."""
-    _require_ported(cfg)
+    """The input-side pipeline stage: tokens (B, S) -> h (B, S, D). The
+    VLM backbone (patches first) and enc-dec have no such stage."""
+    _check_family(cfg)
+    if cfg.family == "vlm":
+        raise ValueError(f"{cfg.name}: the VLM backbone has no token-only "
+                         f"input stage")
     return embed_apply(params["embed"], tokens)
 
 
@@ -346,11 +385,13 @@ def forward_stage(cfg: ModelConfig, blocks: Params, h: torch.Tensor, *,
     """A contiguous SLICE of the stacked blocks over an incoming
     activation: one pipeline stage's compute, by the same body as the
     slice inside ``forward``, so chaining the stage slices is the full
-    forward exactly. Returns (h, aux_slice); the ported families have no
-    auxiliary loss, so aux is an f32 zero."""
-    _require_ported(cfg)
-    h = _walk(cfg, blocks, h, shared, remat=remat, want_cache=False)[0]
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    forward exactly. Returns (h, aux_slice): the slice's MoE losses (an
+    f32 zero for the other families), summed across stages by the
+    caller."""
+    _check_family(cfg)
+    h, aux, _, _ = _walk(cfg, blocks, h, shared, remat=remat,
+                         want_cache=False)
+    return h, aux
 
 
 def head_logits(cfg: ModelConfig, params: Params,
@@ -364,11 +405,12 @@ def head_logits(cfg: ModelConfig, params: Params,
 # ---------------------------------------------------------------------------
 def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
     """{"layers": {leaf: (shape, dtype)}} of the decode state, in the
-    reference's tree: dense {"k","v","pos"} (L, B, ...); plain ssm
+    reference's tree: dense, VLM and MoE {"k","v","pos"} (L, B, ...),
+    the window capped at the sliding window (a ring buffer); plain ssm
     {"h","conv"} (L, B, ...); hybrid {"ssm": {"h","conv"} (G, k, B, ...),
     "shared": {"k","v","pos"} (G, B, ...)}; xLSTM {"mlstm": {"C","n","m"}
     (G, k-1, B, ...), "slstm": {"c","n","m","h"} (G, B, ...)}."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dt = _dt(cfg)
     W = min(window, cfg.sliding_window) if cfg.sliding_window else window
 
@@ -376,7 +418,7 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
         shape = (n, batch, W, cfg.n_kv_heads, cfg.hd)
         return {"k": (shape, dt), "v": (shape, dt),
                 "pos": ((n, batch, W), torch.int32)}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         return {"layers": kv(cfg.n_layers)}
     if cfg.slstm_every:
         G, k = _groups(cfg)
@@ -395,19 +437,23 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, window: int) -> Dict:
                        "shared": kv(G)}}
 
 
+def zeros_state(shapes: Dict, device) -> Dict:
+    """A decode state from its (shape, dtype) tree: zeros, and -1 (=
+    empty slot) for the int32 position leaves."""
+    if isinstance(shapes, dict):
+        return {k: zeros_state(v, device) for k, v in shapes.items()}
+    shape, dt = shapes
+    if dt == torch.int32:
+        return torch.full(shape, -1, dtype=dt, device=device)
+    return torch.zeros(shape, dtype=dt, device=device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, window: int,
                       device="cuda") -> Dict:
-    """Zeros, and -1 (= empty slot) for the int32 position leaves. The
-    mLSTM and sLSTM stabilisers ``m`` start at 0 too, as the reference's
-    zero-filled state does (the start value only rescales the carries)."""
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        shape, dt = spec
-        if dt == torch.int32:
-            return torch.full(shape, -1, dtype=dt, device=device)
-        return torch.zeros(shape, dtype=dt, device=device)
-    return make(decode_state_shapes(cfg, batch, window))
+    """``zeros_state`` of ``decode_state_shapes``. The mLSTM and sLSTM
+    stabilisers ``m`` start at 0 too, as the reference's zero-filled
+    state does (the start value only rescales the carries)."""
+    return zeros_state(decode_state_shapes(cfg, batch, window), device)
 
 
 def _decode_attn(cfg: ModelConfig, p: Dict, hn: torch.Tensor,
@@ -445,17 +491,19 @@ def decode_step(cfg: ModelConfig, params: Params, state: Dict,
     """One new token. token: (B,) int; t: (B,) absolute positions; live:
     optional (B,) bool, False freezes a row's state. Updates ``state`` in
     place and returns (logits (B,V), state)."""
-    _require_ported(cfg)
+    _check_family(cfg)
     h = embed_apply(params["embed"], token[:, None])           # (B,1,D)
     layers = state["layers"]
     blocks = params["blocks"]
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
+        # MoE: the step's B tokens dispatch together, with capacity
+        # min(int(max(1, cf·B·k/E)), B) per expert, as in the reference
         for l in range(cfg.n_layers):
             pl = _layer(blocks, l)
             h = h + _decode_attn(cfg, pl["attn"],
                                  rmsnorm(h, pl["ln1"], cfg.norm_eps), t,
                                  _layer(layers, l), live)
-            h = h + mlp_apply(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+            h = h + _ffn(cfg, pl, rmsnorm(h, pl["ln2"], cfg.norm_eps))[0]
     elif cfg.slstm_every:
         G, k = _groups(cfg)
         for g in range(G):

@@ -26,12 +26,21 @@ token at its own ``len - 1`` and splices the bucket's KV into the slot's
 cache region with only the first ``len`` positions marked valid. Prompts
 longer than the cache window take the token-by-token path.
 
+An MoE prompt token's output depends on the other rows of its
+admission group (the pad rows included): experts have a per-group
+capacity, as in the reference, whose engine pads and groups the same
+way.
+
 Families whose decode state is a **recurrence** (plain ssm, hybrid)
 cannot splice a full-logits prefill's caches: their state is the carry
 after the prompt, not a per-position buffer. They get their own bulk
 path (``ModelAPI.prefill_state_fn``): one length-masked decode pass over
 the padded group (a row's state freezes at its true length), spliced
 into the admitted slots with one indexed write per state leaf.
+Enc-dec and the VLM backbone admit token by token from a zero state, as
+the reference's engine does: it never fills the cross K/V nor passes
+patches (their meaningful runs go through ``ModelAPI``'s prefill, then
+decode).
 
 The port updates the decode cache IN PLACE (the decode step writes its
 slot; the splice writes the admitted slots' regions), where the JAX
@@ -97,10 +106,11 @@ class ServeEngine:
         self._prefill_state_shapes = set()
         # per-leaf batch dim: splices a slot without touching the others
         self._bdim = api.decode_state_bdims(batch, window)
-        # KV bulk admission (the dense family: its decode state is the
+        # KV bulk admission (dense and MoE: their decode state is the
         # stacked KV cache the prefill's caches splice into); recurrent
-        # families take the length-masked decode-pass bulk path
-        self._bulk = self.cfg.family == "dense"
+        # families take the length-masked decode-pass bulk path; enc-dec
+        # and the VLM backbone admit token by token, as in the reference
+        self._bulk = self.cfg.family in ("dense", "moe")
         self._kv_window = (self.state["layers"]["k"].shape[2] if self._bulk
                            else 0)
         self._bulk_rec = self.cfg.family in ("ssm", "hybrid")

@@ -4,8 +4,13 @@ inputs. Beyond the shapes ``chip_smoke.py`` checks, these sweep every
 head dim the kernels take, group sizes 1 to 16, ragged lengths, sliding
 windows, holes in the decode mask, unaligned and contiguous layouts,
 the attention backward, the bucket combine over strided group views,
-one gradient-sync step per schedule kind, and the 2-D pipeline step
-(against the CPU and the single-axis program, and its kernel launches).
+one gradient-sync step per schedule kind, the 2-D pipeline step
+(against the CPU and the single-axis program, and its kernel launches),
+and the remaining families: both attention kernels at their shapes
+(cross-attention's Sq != Sk, g 5 and 7, mixtral's window across S 4608,
+its 4096-slot ring, whisper's 1500 cross keys), one full-width mixtral
+MoE layer in bf16 against f32 on the CPU, and the reduced MoE, enc-dec
+and VLM models against the CPU.
 
 They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
@@ -19,7 +24,13 @@ the tensor-core kernel's, set from its readings of about 1.2e-4, plus
 one bf16 step of |y| when y is bf16); the
 mLSTM kernel 2e-4 with y in f32 (the reference kernel test's) and 2e-2
 with y in bf16, relative to max(1, max|ref|);
-the bucket combine bitwise; the f32 model on the card against the CPU,
+the attention kernels in bf16 at the remaining families' shapes also
+within 1e-2 of every output row's L2 norm (``FAM_ROW_TOL``, as in
+``chip_smoke.py``: about twice the largest sound reading, where 2e-2
+absolute is about a typical output);
+the bucket combine bitwise; a full-width MoE layer in bf16 against f32
+on the CPU, 2e-2 of max(1, max|ref|) (the router and the routing are
+f32 on both); the f32 model on the card against the CPU,
 1e-4, and its gradients 1e-4 of each leaf's largest value; a train
 step's parameters 1e-4 (Adam's first step divides each gradient by its
 own magnitude, so rounding in a near-zero gradient shows). f32 matmuls
@@ -68,6 +79,17 @@ def _randn(gen, shape, dtype):
 def _err(got, want) -> float:
     torch.cuda.synchronize()
     return (got.float() - want.float()).abs().max().item()
+
+
+FAM_ROW_TOL = 1e-2
+
+
+def _row_err(got, want) -> float:
+    """The largest over output rows (one query's hd values) of
+    |got - want|_2 / |want|_2."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30)).max().item()
 
 
 def _to(tree, device):
@@ -909,3 +931,133 @@ def test_pipeline_path_launches_the_kernels(name, monkeypatch):
     assert fwd == 3 * 2 * M * L and bwd == 3 * M * L, (fwd, bwd)
     groups = prog.layout.n_groups if ov == "pipelined" else 1
     assert comb == len(prog.pc.unified_schedule().rounds) * groups
+
+
+# ------------------------------------------------ the remaining families
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,hd,win,causal", [
+    (4, 12, 12, 448, 1500, 64, None, False),   # whisper's cross-attention
+    (2, 12, 12, 50, 300, 64, None, False),     # Sq < 128 < Sk, ragged
+    (1, 12, 12, 1500, 1500, 64, None, False),  # whisper's encoder
+    (1, 40, 8, 300, 300, 128, None, True),     # hd 128, g = 5 (llama4)
+    (1, 56, 8, 300, 300, 128, None, True),     # hd 128, g = 7 (llava)
+    (1, 32, 8, 4608, 4608, 128, 4096, True),   # mixtral's window across S
+])
+def test_flash_attention_family_shapes_match_plain(B, H, Kh, Sq, Sk, hd,
+                                                   win, causal, dtype):
+    gen = torch.Generator("cuda").manual_seed(Sq + Sk)
+    q = _randn(gen, (B, Sq, H, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, Sk, Kh, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, Sk, Kh, hd), dtype).transpose(1, 2)
+    n = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    assert FA.flash_attention.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = FA.attention_ref(q, k, v, causal=causal, sliding_window=win)
+    assert _err(got, want) <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= FAM_ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Kh,W,hd,mask", [
+    (4, 32, 8, 4096, 128, "ring"),   # mixtral's ring, g = 4, with holes
+    (4, 12, 12, 1500, 64, "all"),    # whisper's cross keys, g = 1
+])
+def test_flash_decode_family_shapes_match_plain(B, H, Kh, W, hd, mask,
+                                                dtype):
+    gen = torch.Generator("cuda").manual_seed(W)
+    q = _randn(gen, (B, H, hd), dtype)
+    k = _cache_view(gen, B, W, Kh, hd, dtype, True)
+    v = _cache_view(gen, B, W, Kh, hd, dtype, True)
+    if mask == "all":
+        valid = torch.ones((B, W), dtype=torch.int32, device="cuda")
+    else:
+        valid = torch.randint(0, 2, (B, W), generator=gen, device="cuda",
+                              dtype=torch.int32)
+    got = FD.flash_decode(q, k, v, valid)
+    assert torch.isfinite(got.float()).all()
+    want = FD.decode_ref(q, k, v, valid)
+    assert _err(got, want) <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= FAM_ROW_TOL
+
+
+def test_moe_layer_full_width_bf16_on_card_matches_cpu_f32():
+    """One mixtral-8x7b MoE layer at full width (d_model 4096, d_ff
+    14336, 8 experts, top 2) over 256 tokens in groups of 128 with a
+    padded tail: bf16 on the card against f32 on the CPU from the same
+    values (x and the experts rounded to bf16 once; the router f32, so
+    both route alike). Within 2e-2 of max(1, max|ref|); the aux loss,
+    f32 on both, within 1e-5."""
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x7b")
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, layers=None,
+                     dtype=torch.bfloat16, device="cpu")
+    x = torch.randn((2, 123, cfg.d_model), generator=gen).to(torch.bfloat16)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+              group_size=128)
+    want, want_aux = moe.moe_apply({k: v.float() for k, v in p.items()},
+                                   x.float(), **kw)
+    got, aux = moe.moe_apply(_to(p, "cuda"), x.cuda(), **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    scale = max(1.0, want.abs().max().item())
+    assert _err(got, want.cuda()) <= TOL[torch.bfloat16] * scale
+    assert abs(aux.item() - want_aux.item()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "llama4-scout-17b-a16e",
+                                  "whisper-small", "llava-next-34b"])
+def test_family_model_on_card_matches_cpu(name):
+    """Reduced f32: prefill logits (with frames or patches), the aux loss
+    and decode steps (whisper's with the prefill's cross K/V) on the card
+    against the CPU, within 1e-4; the card's run launches both attention
+    kernels."""
+    cfg = get_config(name).reduced(moe_group_size=16)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                 (2, 13)))}
+    if cfg.is_encdec:
+        batch["frames"] = torch.tensor(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.tensor(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.d_model)), dtype=torch.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        b = _to(batch, dev)
+        before = (FA.flash_attention.launches, FD.flash_decode.launches)
+        logits, caches = api.prefill_full_fn(p, b)
+        (_, metrics), _ = api.value_and_grad(p, {**b, "targets":
+                                                 b["tokens"]})
+        state = api.init_decode_state(2, 20, dev)
+        if cfg.is_encdec:
+            state["cross_k"].copy_(caches["cross_k"])
+            state["cross_v"].copy_(caches["cross_v"])
+        got = [logits, metrics["aux"]]
+        for s in range(24):
+            t = torch.tensor([s, s + 1], dtype=torch.int32, device=dev)
+            lg, state = api.decode_fn(p, state, {
+                "token": b["tokens"][:, s % 13], "t": t})
+            got.append(lg)
+        launched = (FA.flash_attention.launches - before[0],
+                    FD.flash_decode.launches - before[1])
+        outs[dev] = (got + list(state["layers"].values()), launched)
+    for a, b in zip(outs["cpu"][0], outs["cuda"][0]):
+        assert b.is_cuda and torch.isfinite(b.float()).all()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    assert outs["cpu"][1] == (0, 0) and min(outs["cuda"][1]) > 0
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "whisper-small",
+                                  "llava-next-34b"])
+def test_launch_serve_cli_families_on_card(name, capsys):
+    rc = launch_serve.main(["--arch", name, "--reduced", "--requests", "5",
+                            "--batch", "2", "--window", "32",
+                            "--prompt-len", "20", "--max-new", "3"])
+    assert rc == 0
+    assert "served 5/5 requests" in capsys.readouterr().out

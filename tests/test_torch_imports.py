@@ -6,7 +6,9 @@ SSM/hybrid slice (models.ssm, the mamba2_scan kernel, the zamba2
 config) and the xLSTM slice (models.xlstm, the mlstm_chunkwise kernel,
 the xlstm-125m config), the protocol layer (creation, model checker,
 bounds, point-to-point phasers, the live watermarks), the pipeline slice
-(``pipeline_exec``) and the examples, whose import runs nothing."""
+(``pipeline_exec``), the examples, whose import runs nothing, and the
+remaining families (models.moe, models.encdec, every config of
+``configs.archs``)."""
 import ast
 import os
 import subprocess
@@ -57,7 +59,16 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.examples", "repro_torch.examples.quickstart",
               "repro_torch.examples.serve_decode",
               "repro_torch.examples.modelcheck_demo",
-              "repro_torch.examples.elastic_train"):
+              "repro_torch.examples.elastic_train",
+              "repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.configs.archs",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.llama4_scout",
+              "repro_torch.configs.whisper_small",
+              "repro_torch.configs.llava_next_34b",
+              "repro_torch.configs.granite_3_2b",
+              "repro_torch.configs.qwen2_5_3b",
+              "repro_torch.configs.qwen2_72b"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
