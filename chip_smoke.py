@@ -188,13 +188,37 @@ against faults planted in the bf16 kernels' sources (``planted``):
    granite-3-2b and qwen2.5-3b (whole), full width, bf16: one prefill
    of 1024 tokens and 8 decode steps each (the dense ones' last prompt
    token through the cache against the prefill's logits), finite
-   logits, both kernels launched; each model freed before the next.
+   logits, both kernels launched; each model freed before the next;
+26. multihost reference: reduced smollm (2 layers, f32), 3 host
+   processes x 2 ranks in-process (``InprocCluster``), 4 steps with one
+   join: every step's per-host loss and the final loss probes on the
+   card within 1e-4 of the same run on the CPU;
+27. multihost in-process: smollm-135m at full width and depth (bf16),
+   3 hosts x 2 ranks stacked on the card, 2 x 1024 tokens a rank,
+   ``phaser_scsl`` at both levels, 12 steps, ``join@4,fail:1@8`` (3 -> 4
+   -> 3 hosts): the first step's parameters within 1e-4 (relative L2) of
+   the flat ``build_gradsync_program`` over the same 6 ranks and
+   batches; the loss probes bitwise equal on every live host after every
+   step; ``bucket_combine`` launches equal to live hosts x local rounds
+   summed over the steps; each host's program-cache misses equal to the
+   process sets it was live in; the central level-1 exchange timed; a
+   profiled step (``multihost_profile.txt``);
+28. multihost socket: the same model and layout over real worker
+   processes (``SocketCluster``, AF_UNIX, each its own CUDA context on
+   the card), 8 steps, ``kill@5``: the SIGKILLed host detected by
+   heartbeats and evicted non-cooperatively, training going on with 2;
+   the survivors' loss probes bitwise equal after every step; the last
+   step's peer-to-peer level-1 exchange bitwise equal (SHA-256) to the
+   central executor on the same host buffers; detection and recovery
+   seconds (a 20 s silence floor), the frame size, each worker's peak
+   card memory and launches.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (the counterparts of all five TPU kernels and the attention backward,
 plus the attention kernels' rows at hd 112 and at the families' shapes;
 ``launches`` sums the serve, train, hybrid prefill, hybrid serve, xlstm
-prefill, xlstm serve, pipeline, mixtral serve, whisper, llava and config
+prefill, xlstm serve, pipeline, multihost (the in-process run and the
+socket survivors' own counts), mixtral serve, whisper, llava and config
 sweep runs, split in ``launches_by_path``), prefill, decode and
 training rates, the whole run's time, and as the last line
 ``{"ok": true, "device": {...}}``. f32
@@ -2250,6 +2274,417 @@ def phase_pipeline_profile(loop, params, opt_state) -> None:
                                           row_limit=60) + "\n")
 
 
+# ------------------------------------------------ the multi-host runtime
+# host processes x ranks stacked on each, per-rank batch (as the train
+# phase's global 12 x 1024), the churn of whole hosts of each fabric
+MH_HOSTS, MH_RANKS, MH_B, MH_SEQ = 3, 2, 2, 1024
+MH_STEPS, MH_CHURN = 12, "join@4,fail:1@8"          # 3 -> 4 -> 3 hosts
+MH_SOCK_STEPS, MH_SOCK_CHURN = 8, "kill@5"           # 3 -> 2 hosts
+MH_LR, MH_WARMUP = 1e-3, 3
+# socket fabric: heartbeat period and the silence floor of a death. A
+# host's echoes wait behind any large frame it sends the coordinator
+# (a 539 MB buffer takes seconds to pickle, check and read), so the floor
+# keeps well clear of that
+MH_HB, MH_FAILURE_TIMEOUT = 0.5, 20.0
+MH_REF_STEPS, MH_REF_CHURN = 4, "join@2"
+# the first step's parameters against the flat program's, relative L2
+MH_FIRST_TOL = 1e-4
+# the full-width phases' device and model (a CPU rehearsal of the phases'
+# control flow sets "cpu" and the reduced model)
+MH_DEVICE, MH_REDUCED = "cuda", False
+
+
+def _mh_print(msg: str) -> None:
+    """A multi-host result line, with the card it was measured on."""
+    print(f"{msg} [{card_line()}]")
+
+
+def _mh_data(device: str, *, reduced: bool, **kw) -> dict:
+    d = {"arch": "smollm-135m", "reduced": reduced, "batch": MH_B,
+         "seq": MH_SEQ, "lr": MH_LR, "warmup": MH_WARMUP,
+         "steps": MH_STEPS, "devices": MH_RANKS, "device": device,
+         "local_kind": "phaser_scsl"}
+    d.update(kw)
+    return d
+
+
+def _mh_drive(rt, steps: int, churn: str, *, kill=None, on_step=None):
+    """Drive ``steps`` steps of a ``DistCoordinator`` through ``churn``
+    as the train CLI does; after every step the loss probe of every live
+    host. Returns per-step rows: (step, per-host replies, probes, step
+    seconds, live hosts of the step)."""
+    from repro_torch.launch.train import parse_elastic
+    events = parse_elastic(churn)
+    rows = []
+    for step in range(steps):
+        for kind, wid in events.get(step, []):
+            if kind == "join":
+                rt.request_join(step=step)
+            elif kind == "kill":
+                kill(wid if wid is not None else max(rt.live))
+            else:
+                rt.request_leave(wid if wid is not None else max(rt.live),
+                                 fail=kind == "fail", step=step)
+        t0 = time.perf_counter()
+        out = rt.train_step(step)
+        dt = time.perf_counter() - t0
+        rt.advance(step=step)
+        probes = {p: rt.cluster.call(p, {"op": "loss_probe"})["loss"]
+                  for p in sorted(rt.live)}
+        rows.append((step, out, probes, dt, sorted(out)))
+        if on_step is not None:
+            on_step(step)
+    return rows
+
+
+def phase_multihost_reference() -> None:
+    """Reduced smollm (2 layers, f32), 3 hosts x 2 ranks in-process,
+    4 steps with one join: the kernels on the card against the plain
+    versions on the CPU, from the same parameters."""
+    from repro_torch.runtime_dist import DistCoordinator, InprocCluster
+    res = {}
+    for dev in ("cpu", "cuda"):
+        rt = DistCoordinator(
+            InprocCluster(), MH_HOSTS, seed=0,
+            data_for=lambda pid, dev=dev: _mh_data(
+                dev, reduced=True, layers=2, seq=64, steps=MH_REF_STEPS))
+        rows = _mh_drive(rt, MH_REF_STEPS, MH_REF_CHURN)
+        res[dev] = ([{p: r["loss"] for p, r in out.items()}
+                     for _, out, _, _, _ in rows], rows[-1][2])
+        rt.close()
+    (cl, cp), (gl, gp) = res["cpu"], res["cuda"]
+    err = max(max(abs(a[p] - b[p]) for p in a) for a, b in zip(gl, cl))
+    perr = max(abs(gp[p] - cp[p]) for p in cp)
+    _mh_print(f"multihost reference: reduced smollm f32, {MH_HOSTS} hosts x "
+              f"{MH_RANKS} ranks in-process, {MH_REF_STEPS} steps, "
+              f"{MH_REF_CHURN}: card vs CPU plain per-host losses max_abs_err="
+              f"{err:.3e}, final loss probes max_abs_err={perr:.3e}")
+    if [sorted(x) for x in gl] != [sorted(x) for x in cl]:
+        fail(f"multihost reference: hosts differ: {gl} vs {cl}")
+    if not (err <= 1e-4 and perr <= 1e-4):
+        fail(f"multihost reference: card and CPU disagree: {err}, {perr}")
+    if len(set(gp.values())) != 1:
+        fail(f"multihost reference: probes differ on the card: {gp}")
+
+
+def _mh_first_step_reference(params, api, cfg):
+    """The flat ``build_gradsync_program`` over the same 6 ranks and
+    batches as the hierarchical run's first step: its parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.collective_exec import build_gradsync_program
+    from repro_torch.core.collective import PhaserCollective
+    from repro_torch.data import make_batch
+    from repro_torch.optim import AdamW
+    opt = AdamW(lr=MH_LR, warmup=MH_WARMUP, total_steps=MH_STEPS)
+    n = MH_HOSTS * MH_RANKS
+    bs = [make_batch(cfg.vocab_size, MH_B, MH_SEQ, seed=1000 + r, step=0)
+          for r in range(n)]
+    batch = {k: torch.tensor(np.stack([b[k] for b in bs]),
+                             device=MH_DEVICE) for k in bs[0]}
+    prog = build_gradsync_program(
+        api, opt, PhaserCollective(n, "data", kind="phaser_scsl", seed=0),
+        device=MH_DEVICE, stacked=True)
+    new_p, _, pm = prog.step(params, opt.init(params), batch)
+    gn = pm["grad_norm"][0].item()
+    torch.cuda.synchronize()
+    return new_p, gn
+
+
+def _rel_l2_tree(a, b) -> float:
+    from repro_torch.utils import tree_flatten
+    num = den = 0.0
+    for x, y in zip(tree_flatten(a)[1], tree_flatten(b)[1]):
+        num += (x.float() - y.float()).pow(2).sum().item()
+        den += y.float().pow(2).sum().item()
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def _mh_medians(rows, label: str) -> None:
+    import statistics
+    by = {}
+    for step, out, _, dt, live in rows:
+        by.setdefault(tuple(live), []).append(dt)
+    for live, dts in by.items():
+        med = statistics.median(dts)
+        tokens = len(live) * MH_RANKS * MH_B * MH_SEQ
+        _mh_print(f"multihost {label}: hosts {list(live)}: {len(dts)} "
+                  f"steps, median step {med:.4f} s, {tokens / med:.1f} "
+                  f"tokens/s")
+
+
+def _mh_split(rows, label: str) -> None:
+    """Median seconds of each part of a step over the run's hosts and
+    steps (the agents' replies; host clock around device-synchronized
+    work)."""
+    import statistics
+    parts = {}
+    for _, out, _, _, _ in rows:
+        for r in out.values():
+            for k in ("grads_s", "d2h_s", "exchange_s", "h2d_s",
+                      "apply_s"):
+                if k in r:
+                    parts.setdefault(k, []).append(r[k])
+    _mh_print(f"multihost {label}: step split, median over hosts and steps: "
+              + ", ".join(f"{k[:-2]} {1e3 * statistics.median(v):.3f} ms"
+                          for k, v in parts.items()))
+
+
+def phase_multihost_inproc() -> dict:
+    """smollm-135m at full width and depth (bf16), 3 host processes x 2
+    ranks stacked on the card in this process (``InprocCluster``),
+    ``phaser_scsl`` at both levels, 12 steps, ``join@4,fail:1@8``.
+    Returns the kernels' launches in the run."""
+    import torch
+    import repro_torch.runtime_dist.coordinator as C
+    from repro_torch.core.collective import PhaserCollective
+    from repro_torch.kernels import bucket_combine as BC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.runtime_dist import DistCoordinator, InprocCluster
+    from repro_torch.utils import tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = DistCoordinator(InprocCluster(), MH_HOSTS, seed=0,
+                         data_for=lambda pid: _mh_data(
+                             MH_DEVICE, reduced=MH_REDUCED))
+    dp0 = rt.cluster.agents[0]._dp
+    api, cfg = dp0["api"], dp0["cfg"]
+    _mh_print(f"multihost inproc: {MH_HOSTS} hosts booted with their data "
+              f"planes in {time.perf_counter() - t0:.3f} s")
+    flat_p, flat_gn = _mh_first_step_reference(dp0["params"], api, cfg)
+    torch.cuda.empty_cache()
+
+    # the level-1 exchange runs centrally in-process: time it and count
+    # its bytes
+    reg = MetricsRegistry()
+    central = C.run_schedule_rounds
+    ex_s = []
+
+    def timed(sched, bufs, **kw):
+        t = time.perf_counter()
+        out = central(sched, bufs, metrics=reg)
+        ex_s.append((time.perf_counter() - t, len(sched.rounds)))
+        return out
+    first = {}
+
+    def keep_first(step):
+        if step == 0:
+            first["params"] = tree_map(torch.clone,
+                                       rt.cluster.agents[0]._dp["params"])
+
+    torch.cuda.synchronize()
+    FA.flash_attention.launches = 0
+    FA.flash_attention_bwd.launches = 0
+    BC.bucket_combine.launches = 0
+    C.run_schedule_rounds = timed
+    try:
+        t0 = time.perf_counter()
+        rows = _mh_drive(rt, MH_STEPS, MH_CHURN, on_step=keep_first)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        C.run_schedule_rounds = central
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "flash_attention_bwd": FA.flash_attention_bwd.launches,
+                "bucket_combine": BC.bucket_combine.launches}
+    local_rounds = len(PhaserCollective(MH_RANKS, "data",
+                                        kind="phaser_scsl",
+                                        seed=0).unified_schedule().rounds)
+    # execute_flat: one launch a local round over the whole stacked buffer
+    predicted = sum(len(live) for *_, live in rows) * local_rounds
+    first_err = _rel_l2_tree(first["params"], flat_p)
+    gn0 = rows[0][1][0]["gnorm"]
+    losses = [sum(r["loss"] for r in out.values()) / len(out)
+              for _, out, _, _, _ in rows]
+    split = [len(set(pr.values())) for _, _, pr, _, _ in rows]
+    sets = {}
+    for e in rt.epochs:
+        for p in e.live:
+            sets.setdefault(p, set()).add(e.live)
+    misses = {p: a._dp["cache"].stats()["misses"]
+              for p, a in rt.cluster.agents.items()}
+    want_misses = {p: len(sets[p]) for p in misses}
+    events = [[e.step, e.kind, e.pid] for e in rt.events]
+    dtype = str(cfg.dtype).split(".")[-1]
+    _mh_print(f"multihost inproc: smollm-135m full width and depth "
+              f"{dtype}, {MH_HOSTS} hosts x {MH_RANKS} ranks on one card, "
+              f"{MH_B}x{MH_SEQ} tokens a rank, "
+              f"{MH_STEPS} steps in {wall:.3f} s, {MH_CHURN}: epochs "
+              f"{[list(e.live) for e in rt.epochs]}, events {events}; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({[round(x, 4) for x in losses]}); launches {launches}; "
+              f"bucket_combine launches {launches['bucket_combine']}, the "
+              f"schedule predicts {predicted} (live hosts x {local_rounds} "
+              f"local rounds a step); program-cache misses "
+              f"{misses}, distinct process sets {want_misses}")
+    _mh_print(f"multihost inproc: first step vs the flat program over "
+              f"the same {MH_HOSTS * MH_RANKS} ranks and batches: "
+              f"parameters relative L2 {first_err:.3e}, grad_norm "
+              f"{gn0:.6f} vs {flat_gn:.6f}; loss "
+              f"probes bitwise equal on every live host after each of the "
+              f"{len(rows)} steps: {all(n == 1 for n in split)}")
+    rounds = reg.snapshot()["counters"]
+    mb = rounds.get("exchange.bytes_moved", 0) / max(
+        1, rounds.get("exchange.rounds", 1))
+    import statistics
+    _mh_print(f"multihost inproc: level-1 exchange (central, host numpy): "
+              f"median {statistics.median(s for s, _ in ex_s):.4f} s a step "
+              f"over {ex_s[0][1]}-{ex_s[-1][1]} rounds, "
+              f"{rounds.get('exchange.rounds', 0)} rounds moving "
+              f"{mb / 1e6:.1f} MB a round on average; frame buffer "
+              f"{dp0['cache'].programs()[0].layout.total_elems * 4} bytes")
+    _mh_medians(rows, "inproc")
+    _mh_split(rows, "inproc")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"multihost inproc: losses not all finite: {losses}")
+    if events != [[4, "join", 3], [8, "fail", 1]]:
+        fail(f"multihost inproc: events {events}")
+    if not first_err <= MH_FIRST_TOL:
+        fail(f"multihost inproc: first step's parameters {first_err} "
+             "(relative L2) from the flat program's")
+    if any(n != 1 for n in split):
+        fail(f"multihost inproc: loss probes differ across hosts: "
+             f"{[pr for _, _, pr, _, _ in rows]}")
+    if launches["bucket_combine"] != predicted:
+        fail(f"multihost inproc: {launches['bucket_combine']} "
+             f"bucket_combine launches, the schedule predicts {predicted}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"multihost inproc: a kernel was never launched: {launches}")
+    if misses != want_misses:
+        fail(f"multihost inproc: program-cache misses {misses}, distinct "
+             f"process sets {want_misses}")
+    _mh_profile(rt)
+    _mh_print(f"multihost inproc: peak card memory of the process (all "
+              f"{len(rt.cluster.agents)} hosts) "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    rt.close()
+    return launches
+
+
+def _mh_profile(rt) -> None:
+    """One more in-process step under torch.profiler: host wall against
+    device busy, split into the hosts' local grads, local sync and
+    update (``gradsync.*`` ranges)."""
+    step = MH_STEPS
+    wall, busy, spans, by_name, prof = profile_ranges(
+        lambda: rt.train_step(step))
+    rt.advance(step=step)
+    parts = "; ".join(f"{k} x{v['count']} host {v['host_ms']:.3f} ms device "
+                      f"{v['device_ms']:.3f} ms"
+                      for k, v in sorted(spans.items()))
+    _mh_print(f"profile multihost inproc step ({len(rt.live)} hosts x "
+              f"{MH_RANKS} ranks): host wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall:.1f}%); {parts}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    with open(os.path.join(HERE, "chiprun_out", "multihost_profile.txt"),
+              "w") as f:
+        f.write(f"== multihost inproc step: wall {wall:.4f} ms, busy "
+                f"{busy:.4f} ms\n{json.dumps(spans, indent=1)}\n"
+                + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top) + "\n")
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=60) + "\n")
+
+
+def phase_multihost_socket() -> dict:
+    """The same model and layout over real OS processes (``SocketCluster``,
+    AF_UNIX; each worker its own CUDA context on the card): 8 steps,
+    ``kill@5`` (SIGKILL). Returns the survivors' kernel launches."""
+    import hashlib
+    import numpy as np
+    from repro_torch.runtime_dist import (DistCoordinator, SocketCluster,
+                                          run_schedule_rounds)
+    from repro_torch.runtime_dist.transport import _pack_frame
+
+    cl = SocketCluster(hb_interval=MH_HB,
+                       failure_timeout=MH_FAILURE_TIMEOUT)
+    rt = None
+    try:
+        t0 = time.perf_counter()
+        rt = DistCoordinator(
+            cl, MH_HOSTS, seed=0, obs=True,
+            data_for=lambda pid: _mh_data(MH_DEVICE, reduced=MH_REDUCED,
+                                          steps=MH_SOCK_STEPS,
+                                          keep_exchange=True))
+        _mh_print(f"multihost socket: {MH_HOSTS} worker processes up with "
+                  f"their data planes in {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        rows = _mh_drive(rt, MH_SOCK_STEPS, MH_SOCK_CHURN,
+                         kill=cl.kill_pid)
+        wall = time.perf_counter() - t0
+        events = [[e.step, e.kind, e.pid] for e in rt.events]
+        hists = rt.obs.merged_metrics()["hists"]
+        det = hists.get("failure.detection_seconds", {})
+        rec = hists.get("failure.recover_seconds", {})
+        stats = {p: rt.cluster.call(p, {"op": "device_stats"})
+                 for p in sorted(rt.live)}
+        ex = {p: rt.cluster.call(p, {"op": "last_exchange"})
+              for p in sorted(rt.live)}
+    finally:
+        # stops every worker process, whatever failed
+        (rt or cl).close()
+    losses = [sum(r["loss"] for r in out.values()) / len(out)
+              for _, out, _, _, _ in rows]
+    split = [len(set(pr.values())) for _, _, pr, _, _ in rows]
+    kill_step = next(r for r in rows if r[0] == 5)
+    # the level-1 exchange of the last step: the workers' peer-to-peer
+    # rounds against the central executor on the same host buffers
+    pids = ex[min(ex)]["pids"]
+    from repro_torch.core.collective import PhaserCollective
+    sched = PhaserCollective(len(pids), "data", kind="phaser_scsl",
+                             seed=0, keys=tuple(pids)).unified_schedule()
+    central = run_schedule_rounds(sched, {p: ex[p]["local"] for p in pids})
+    same = all(hashlib.sha256(central[p].view(np.uint8)).hexdigest()
+               == ex[p]["reduced_sha256"] for p in pids)
+    buf = ex[pids[0]]["local"]
+    t = time.perf_counter()
+    frame = len(_pack_frame(0, 0, "red", (0, 0, 0, buf)))
+    pack_s = time.perf_counter() - t
+    launches = {}
+    for s in stats.values():
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    _mh_print(f"multihost socket: smollm-135m full width and depth, "
+              f"{MH_HOSTS} worker processes x {MH_RANKS} ranks on one card, "
+              f"{MH_SOCK_STEPS} steps in {wall:.3f} s, {MH_SOCK_CHURN}: "
+              f"events {events}; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({[round(x, 4) for x in losses]}); the killed step took "
+              f"{kill_step[3]:.3f} s; detection "
+              f"{det.get('total', math.nan):.3f} s of silence (failure "
+              f"timeout {MH_FAILURE_TIMEOUT} s), recovery "
+              f"{rec.get('total', math.nan):.3f} s; survivors' loss probes "
+              f"bitwise equal after every step: {all(n == 1 for n in split)}")
+    _mh_print(f"multihost socket: level-1 exchange of step "
+              f"{ex[pids[0]]['step']} over {len(sched.rounds)} rounds, "
+              f"peer-to-peer vs central on the same card-produced host "
+              f"buffers: bitwise equal (SHA-256) {same}; a round "
+              f"moves {buf.nbytes} bytes, one frame {frame} bytes (pickle + "
+              f"CRC32 in {pack_s:.3f} s)")
+    for p, s in sorted(stats.items()):
+        _mh_print(f"multihost socket: worker {p} peak card memory "
+                  f"{s['peak_bytes'] / 2**30:.3f} GiB, launches "
+                  f"{s['launches']}")
+    _mh_medians(rows, "socket")
+    _mh_split(rows, "socket")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"multihost socket: losses not all finite: {losses}")
+    if events != [[5, "dead", 2]]:
+        fail(f"multihost socket: events {events}")
+    if [len(live) for *_, live in rows] != [3] * 5 + [2] * 3:
+        fail(f"multihost socket: hosts a step "
+             f"{[live for *_, live in rows]}")
+    if any(n != 1 for n in split):
+        fail(f"multihost socket: loss probes differ across hosts: "
+             f"{[pr for _, _, pr, _, _ in rows]}")
+    if not same:
+        fail("multihost socket: the peer-to-peer exchange differs from the "
+             "central executor's on the same buffers")
+    if not all(launches.get(k, 0) > 0 for k in
+               ("flash_attention", "flash_attention_bwd", "bucket_combine")):
+        fail(f"multihost socket: a kernel was never launched: {launches}")
+    return launches
+
 # ------------------------------------------------- the remaining families
 MIXTRAL, LLAMA4, WHISPER, LLAVA = ("mixtral-8x7b", "llama4-scout-17b-a16e",
                                    "whisper-small", "llava-next-34b")
@@ -2961,6 +3396,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_pipeline_reference()
     by_path["pipeline"] = phase_pipeline_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_multihost_reference()
+    by_path["multihost"] = phase_multihost_inproc()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in phase_multihost_socket().items():
+        by_path["multihost"][k] += v
     by_path.update(families)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0)

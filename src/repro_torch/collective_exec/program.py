@@ -22,9 +22,15 @@ and runs one bucket stream per microbatch with the flag at a/M. Both
 execute the reference's per-element combine sequence, so pipelined is
 bitwise equal to eager at fixed ``microbatches``.
 
+``build_hier_gradsync_program`` is the multi-host runtime's two-level
+sync (DESIGN.md §11): level 0 reduces one host process's M ranks,
+stacked on its device, through the local schedule's ``bucket_combine``
+rounds; level 1, the process-level schedule, runs between processes
+over the transport on the host copy of the flat buffer
+(``runtime_dist``).
+
 ``build_allreduce_program`` is the bare data-plane program (no model):
 it all-reduces a stacked per-rank value through the same bucket path.
-The hierarchical multi-host program waits for ROADMAP A.10.
 
 A step's three parts are ``torch.profiler`` ranges (``gradsync.grads``:
 every rank's forward, backward and flatten; ``gradsync.sync``;
@@ -225,6 +231,117 @@ def build_gradsync_program(api, opt, pc: PhaserCollective, *,
                                 overlap, microbatches),
                            pc=pc, stack=stack, layout=layout, run=run,
                            stacked=stacked, meta=meta, last=last)
+
+
+@dataclass
+class HierSyncProgram:
+    """Two-level gradient sync for one host process of the multi-host
+    runtime (DESIGN.md §11). Level 0 reduces the process's M ranks,
+    stacked on its device (the local collective); level 1 runs the
+    *process-level* schedule, derived from the same skip-list oracle
+    over the live process keys, as transport messages between
+    processes. Only the flat bucket buffer crosses the process boundary:
+
+      ``local_grads``: (params, opt, batch, alive) -> (flat, pm): each
+          rank's grads, flattened with its alive flag into its row of
+          the stacked ``(M, n_buckets, bucket_elems)`` buffer (made once
+          per program), reduced by the local schedule so every row holds
+          the process-partial sum; ``flat`` is row 0, ``pm`` the
+          per-rank ``(M,)`` loss and alive rows;
+      ``apply``: (params, opt, flat) -> (params, opt, om): unflatten the
+          *globally* reduced buffer, take the masked mean by the reduced
+          alive count (live processes x M), one AdamW update.
+
+    Identical reduced buffers on every process keep the parameters
+    replicated across hosts with no parameter traffic. ``key`` is keyed
+    by the process-level collective: the cache entry a surviving host
+    re-commits at each churn epoch boundary."""
+
+    key: tuple
+    pc_proc: PhaserCollective     # process-level collective (epoch id)
+    pc_local: PhaserCollective    # the local M-rank collective
+    stack: RankStack
+    layout: BucketLayout
+    local_grads: Callable
+    apply: Callable
+    meta: Dict[str, int] = field(default_factory=dict)
+    # the last local sync's stacked buffer and its reduced result
+    # (references, no copies; refilled by the next step)
+    last: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def proc_schedule(self):
+        """The round schedule the owning process executes over the
+        transport (add rounds reduce, copy rounds hydrate)."""
+        return self.pc_proc.unified_schedule()
+
+
+def build_hier_gradsync_program(api, opt, pc_proc: PhaserCollective, *,
+                                local_ranks: int, device="cuda",
+                                local_kind: str = "phaser_scsl"
+                                ) -> HierSyncProgram:
+    """One churn epoch's hierarchical sync for one process.
+
+    ``pc_proc`` spans the live *process* keys (the epoch identity); the
+    local level is a fresh collective over ``range(local_ranks)``,
+    stacked on ``device``: identical on every host, so the programs
+    differ only by their slice of the batch. ``pc_proc.kind`` must be a
+    whole-buffer round schedule (``phaser_scsl`` or
+    ``recursive_doubling``): the cross-process rounds are executed by
+    the transport. Batches are stacked per rank (leaves ``(M, B, S)``).
+    """
+    assert pc_proc.unified_schedule() is not None, \
+        f"process-level kind {pc_proc.kind!r} is not a round schedule"
+    m = local_ranks
+    pc_local = PhaserCollective(m, pc_proc.axis_name, kind=local_kind,
+                                seed=pc_proc.seed)
+    stack = RankStack(m, device)
+    layout = make_layout(api.param_spec())
+    emit_round_grid(pc_local, layout.n_groups, False)
+    bufs: List[torch.Tensor] = []      # the stacked buffer, made once
+    last: Dict[str, Any] = {}
+
+    def local_grads(params, opt_state, batch, alive):
+        if not bufs:
+            bufs.append(torch.zeros((m, layout.n_buckets,
+                                     layout.bucket_elems),
+                                    dtype=torch.float32,
+                                    device=stack.device))
+        alive = alive.to(device=stack.device, dtype=torch.float32)
+        losses = []
+        with record_function("gradsync.grads"):
+            for r in range(m):
+                a = alive[r]
+                (_, met), grads = api.value_and_grad(
+                    params, {k: v[r] for k, v in batch.items()})
+                grads = tree_map(lambda g: g * a.to(g.dtype), grads)
+                layout.flatten_into(bufs[0][r], grads, a)
+                losses.append(met["loss"] * a)
+        with record_function("gradsync.sync"):
+            red = execute_flat(bufs[0], pc_local, stack)
+        last.update(stacked=bufs[0], reduced=red)
+        # every local rank holds the same locally reduced buffer
+        return red[0], {"loss": torch.stack(losses), "alive": alive}
+
+    def apply(params, opt_state, flat: torch.Tensor):
+        with record_function("gradsync.update"):
+            grads, count = layout.unflatten(flat)
+            inv = 1.0 / torch.clamp(count, min=1.0)
+            grads = tree_map(lambda g: g * inv.to(g.dtype), grads)
+            new_p, new_o, om = opt.update(grads, opt_state, params)
+        return new_p, new_o, {k: v.float() for k, v in om.items()}
+
+    st = pc_proc.stats()
+    lst = pc_local.stats()
+    meta = {"team": pc_proc.n * m, "processes": pc_proc.n,
+            "local_devices": m,
+            "sync_rounds": st["rounds"] + lst["rounds"],
+            "sync_messages": st["messages"] * m + lst["messages"]}
+    return HierSyncProgram(
+        key=(pc_proc.keys, pc_proc.kind, pc_proc.seed, pc_proc.p,
+             "hier", m, local_kind),
+        pc_proc=pc_proc, pc_local=pc_local, stack=stack, layout=layout,
+        local_grads=local_grads, apply=apply, meta=meta, last=last)
 
 
 def build_allreduce_program(pc: PhaserCollective, spec, *,

@@ -28,8 +28,10 @@ counterpart of the reference's ``shard_map`` mesh axis (its CPU tests
 run the same simulation over host devices). ``lax.ppermute`` becomes
 ``RankStack.ppermute`` (a rank that is not a destination receives
 zeros), ``lax.axis_index`` ``RankStack.axis_index``, and ``lax.psum``
-the stacked sum broadcast to every rank. Multi-card execution over
-``torch.distributed`` is later work (ROADMAP A.10).
+the stacked sum broadcast to every rank. Across host processes
+(``runtime_dist``) each process stacks its own ranks here and the
+process-level schedule's rounds travel over the runtime's transport, as
+in the reference.
 """
 from __future__ import annotations
 

@@ -23,8 +23,8 @@ pieces, all jax-free and always-on:
 * ``LiveStreamer`` — appends compact JSONL heartbeat frames (watermark
   view, merged counter deltas, detector phi scores, RPC latency
   quantiles, membership events) to ``--live-out`` at a bounded cadence;
-  the reference's ``obs.watch`` (not ported yet, ROADMAP A.10) tails
-  the file and renders the dashboard mid-run.
+  ``python -m repro_torch.obs.watch`` tails the file and renders the
+  dashboard mid-run.
 
 Frame schema (DESIGN.md §14): one JSON object per line,
 ``{"v": 1, "ts", "step", "phase", "epoch", "gen", "live": [pids],

@@ -6,11 +6,14 @@ windows, holes in the decode mask, unaligned and contiguous layouts,
 the attention backward, the bucket combine over strided group views,
 one gradient-sync step per schedule kind, the 2-D pipeline step
 (against the CPU and the single-axis program, and its kernel launches),
-and the remaining families: both attention kernels at their shapes
+the remaining families: both attention kernels at their shapes
 (cross-attention's Sq != Sk, g 5 and 7, mixtral's window across S 4608,
 its 4096-slot ring, whisper's 1500 cross keys), one full-width mixtral
 MoE layer in bf16 against f32 on the CPU, and the reduced MoE, enc-dec
-and VLM models against the CPU.
+and VLM models against the CPU; and the multi-host runtime: an
+in-process cluster of 3 hosts x 2 ranks on the card against the same
+run on the CPU, and the hierarchical step's ``bucket_combine`` launches
+against its local schedule.
 
 They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
@@ -1061,3 +1064,77 @@ def test_launch_serve_cli_families_on_card(name, capsys):
                             "--prompt-len", "20", "--max-new", "3"])
     assert rc == 0
     assert "served 5/5 requests" in capsys.readouterr().out
+
+
+# ------------------------------------------------------ multi-host runtime
+def _hier_data(device):
+    return {"arch": "smollm-135m", "reduced": True, "layers": 2,
+            "batch": 2, "seq": 64, "lr": 3e-3, "warmup": 2, "steps": 6,
+            "devices": 2, "device": device, "local_kind": "phaser_scsl"}
+
+
+def test_inproc_cluster_on_card_matches_cpu():
+    """3 hosts x 2 ranks stacked on the card, in-process, a join then a
+    cooperative failure (reduced smollm, f32): every step's per-host loss
+    and the final loss probes within 1e-4 of the same run on the CPU,
+    and the probes bitwise equal across the card's hosts."""
+    from repro_torch.runtime_dist import DistCoordinator, InprocCluster
+    res = {}
+    for dev in ("cpu", "cuda"):
+        rt = DistCoordinator(InprocCluster(), 3, seed=0,
+                             data_for=lambda pid, dev=dev: _hier_data(dev))
+        losses = []
+        for step in range(6):
+            if step == 2:
+                rt.request_join(step=step)
+            if step == 4:
+                rt.request_leave(1, fail=True, step=step)
+            out = rt.train_step(step)
+            losses.append({p: r["loss"] for p, r in out.items()})
+            rt.advance(step=step)
+        probes = {p: rt.cluster.call(p, {"op": "loss_probe"})["loss"]
+                  for p in sorted(rt.live)}
+        rt.close()
+        res[dev] = (losses, probes)
+    (cl, cp), (gl, gp) = res["cpu"], res["cuda"]
+    assert [sorted(x) for x in gl] == [sorted(x) for x in cl]
+    for a, b in zip(gl, cl):
+        for p in b:
+            assert abs(a[p] - b[p]) <= 1e-4, (p, a, b)
+    for p in cp:
+        assert abs(gp[p] - cp[p]) <= 1e-4, (gp, cp)
+    assert len(set(gp.values())) == 1, gp
+
+
+@pytest.mark.parametrize("m,kind", [(2, "phaser_scsl"), (3, "phaser_scsl"),
+                                    (4, "recursive_doubling")])
+def test_hier_step_launches_bucket_combine_per_local_round(m, kind):
+    """One hierarchical step on the card: ``local_grads`` launches
+    ``bucket_combine`` once per round of the local schedule (the whole
+    stacked buffer in one launch a round) and ``apply`` none; every row
+    holds the local sum."""
+    from repro_torch.collective_exec import build_hier_gradsync_program
+    api = get_api(get_config("smollm-135m").reduced(n_layers=2))
+    opt = AdamW()
+    params = api.init_params(torch.Generator("cuda").manual_seed(0), "cuda")
+    st = opt.init(params)
+    prog = build_hier_gradsync_program(
+        api, opt, PhaserCollective(3, "data", kind="phaser_scsl",
+                                   keys=(0, 1, 2)),
+        local_ranks=m, device="cuda", local_kind=kind)
+    bs = [make_batch(api.cfg.vocab_size, 2, 32, seed=r, step=0)
+          for r in range(m)]
+    batch = {k: torch.tensor(np.stack([b[k] for b in bs]), device="cuda")
+             for k in bs[0]}
+    torch.cuda.synchronize()
+    BC.bucket_combine.launches = 0
+    flat, _ = prog.local_grads(params, st, batch, torch.ones(m))
+    rounds = len(prog.pc_local.unified_schedule().rounds)
+    assert BC.bucket_combine.launches == rounds
+    prog.apply(params, st, flat)
+    assert BC.bucket_combine.launches == rounds
+    red, stacked = prog.last["reduced"], prog.last["stacked"]
+    for r in range(m):
+        assert torch.equal(red[r], red[0])
+    assert _err(red[0], stacked.sum(0)) <= 1e-5 * max(
+        1.0, stacked.sum(0).abs().max().item())

@@ -8,7 +8,13 @@ the xlstm-125m config), the protocol layer (creation, model checker,
 bounds, point-to-point phasers, the live watermarks), the pipeline slice
 (``pipeline_exec``), the examples, whose import runs nothing, and the
 remaining families (models.moe, models.encdec, every config of
-``configs.archs``)."""
+``configs.archs``) and the multi-host runtime (``runtime_dist``, the
+obs plane's trace, recorder, hub and CLIs).
+
+The multi-host runtime keeps the reference's control plane free of the
+array library: a control-only worker (``data: None``) never imports
+``torch``, which a socket cluster proves with ``torch`` made
+unimportable in the coordinator and in every worker it spawns."""
 import ast
 import os
 import subprocess
@@ -68,7 +74,18 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.configs.llava_next_34b",
               "repro_torch.configs.granite_3_2b",
               "repro_torch.configs.qwen2_5_3b",
-              "repro_torch.configs.qwen2_72b"):
+              "repro_torch.configs.qwen2_72b",
+              "repro_torch.runtime_dist",
+              "repro_torch.runtime_dist.agent",
+              "repro_torch.runtime_dist.coordinator",
+              "repro_torch.runtime_dist.exchange",
+              "repro_torch.runtime_dist.failure",
+              "repro_torch.runtime_dist.plane",
+              "repro_torch.runtime_dist.transport",
+              "repro_torch.runtime_dist.worker",
+              "repro_torch.obs.trace", "repro_torch.obs.recorder",
+              "repro_torch.obs.hub", "repro_torch.obs.check",
+              "repro_torch.obs.watch"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
@@ -102,3 +119,39 @@ def _imported_roots(path: Path):
 def test_source_imports_neither_jax_nor_repro(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+CONTROL_ONLY = r"""
+import os, sys
+from repro_torch.runtime_dist import DistCoordinator, SocketCluster
+rt = DistCoordinator(SocketCluster(control_only=True,
+                                   failure_timeout=300.0), 2, seed=0)
+rt.advance(step=0)
+assert rt.epoch.live == (0, 1)
+st = rt.control_stats()
+assert st["remote_frames"] > 0, st
+rt.close()
+assert "torch" not in sys.modules
+print("ok")
+"""
+
+
+def test_control_only_worker_never_imports_torch(tmp_path):
+    """A socket cluster of control-only workers (``python -m
+    repro_torch.runtime_dist.worker``, ``data: None``) boots and advances
+    a phase with ``torch`` unimportable: a stub that records the attempt
+    and raises stands first on the path of the coordinator and of every
+    worker."""
+    stub = tmp_path / "stub" / "torch"
+    stub.mkdir(parents=True)
+    marker = tmp_path / "torch_imported"
+    (stub / "__init__.py").write_text(
+        f"open({str(marker)!r}, 'a').write('x')\n"
+        "raise ImportError('torch imported by the control plane')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(tmp_path / "stub")]))
+    r = subprocess.run([sys.executable, "-c", CONTROL_ONLY], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+    assert not marker.exists()

@@ -685,8 +685,14 @@ def test_pipeline_stages_are_not_ported_yet():
 
 
 def test_train_cli_refuses_what_is_not_ported(capsys):
-    for extra in (["--host-devices", "2"], ["--processes", "2"],
-                  ["--elastic", "kill@3"]):
+    """Every option of the reference's CLI is ported (the multi-host
+    runtime: ``tests/test_torch_dist.py``); what stays refused is what the
+    reference refuses too: a crash without host processes, link chaos
+    without a socket fabric, and host ranks without hosts."""
+    for extra, msg in ((["--elastic", "kill@3"], "need --processes > 1"),
+                       (["--processes", "2", "--chaos-links", "0|1@1+1"],
+                        "needs --fabric socket|tcp"),
+                       (["--host-devices", "2"], "--processes > 1")):
         with pytest.raises(SystemExit):
             launch_train.main(["--reduced", "--device", "cpu", *extra])
-        assert "ROADMAP A." in capsys.readouterr().err
+        assert msg in capsys.readouterr().err
