@@ -211,15 +211,33 @@ against faults planted in the bf16 kernels' sources (``planted``):
    step's peer-to-peer level-1 exchange bitwise equal (SHA-256) to the
    central executor on the same host buffers; detection and recovery
    seconds (a 20 s silence floor), the frame size, each worker's peak
-   card memory and launches.
+   card memory and launches;
+29. dry-run against the card: ``launch.dryrun`` traces smollm-135m x
+   train_4k with ``dp_over_model`` on the 16x16 mesh (a fake group of
+   256 ranks, meta shards: rank 0 holds every parameter and one 4096-token
+   sequence) and predicts rank 0's peak bytes and FLOPs; that rank's
+   program then runs on the card at full width (``build_train_step``,
+   B = 1, S = 4096, remat, the team of 1 a single card stacks), its
+   FLOPs counted by the same counters on the real tensors, its peak
+   ``torch.cuda.max_memory_allocated()`` over the step above the bytes
+   held before it, its median step time against
+   ``analytic_terms(..., chips=256, tp=1)``'s per-GPU bound. The
+   measured peak over the predicted must lie in ``DRYRUN_PEAK_BAND``
+   (PERF.md gives its reason) and the attention kernels' counters,
+   zeroed just before the step, be > 0. Then int8 compression with
+   error feedback on the multi-host flat buffer's shape (2055 x 65536
+   f32) on the card against the CPU (scale 1e-7 relative, q equal off
+   the .5 rounding ties, residual 1e-6), timed; and ``python -m
+   repro_torch.obs.regress`` over the committed ``BENCH_*.json`` must
+   exit 0.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (the counterparts of all five TPU kernels and the attention backward,
 plus the attention kernels' rows at hd 112 and at the families' shapes;
 ``launches`` sums the serve, train, hybrid prefill, hybrid serve, xlstm
 prefill, xlstm serve, pipeline, multihost (the in-process run and the
-socket survivors' own counts), mixtral serve, whisper, llava and config
-sweep runs, split in ``launches_by_path``), prefill, decode and
+socket survivors' own counts), mixtral serve, whisper, llava, config
+sweep and dry-run check runs, split in ``launches_by_path``), prefill, decode and
 training rates, the whole run's time, and as the last line
 ``{"ok": true, "device": {...}}``. f32
 matmuls run without TF32 (``allow_tf32`` off) wherever f32 results are
@@ -406,13 +424,7 @@ def _attn_row(q, k, v, causal, win, err, shape):
     from repro_torch.kernels import flash_attention as FA
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
-    # the (query, key) pairs this call's masks leave visible
-    if causal:
-        i = torch.arange(Sq, dtype=torch.float64)
-        pairs = int(torch.clamp(i + 1, max=win or Sq).sum())
-    else:
-        pairs = Sq * Sk
-    flops = 4 * B * H * hd * pairs
+    flops = FA.attention_flops(B, H, Sq, Sk, hd, causal, win)
     nbytes = 2 * (2 * B * H * Sq * hd + 2 * B * Kh * Sk * hd)
     ms, host = time_ms(lambda: FA.flash_attention(
         q, k, v, causal=causal, sliding_window=win), kernels=ATTN_FWD_BF16)
@@ -447,7 +459,7 @@ def _decode_row(q, views, valid, err, shape):
     Kh = views[0][0].shape[1]
     L = len(views)
     n_valid = int(valid.sum())
-    flops = 4 * H * hd * n_valid
+    flops = FD.decode_flops(H, hd, n_valid)
     nbytes = 2 * (2 * n_valid * Kh * hd + 2 * B * H * hd) + 4 * valid.numel()
 
     def cycle(fn):
@@ -841,7 +853,7 @@ def phase_train_parity():
     so = F.scaled_dot_product_attention(*sq, is_causal=True, enable_gqa=True)
     lib, _ = time_ms(lambda: torch.autograd.grad(so, sq, do,
                                                  retain_graph=True))
-    flops = 5 * B * H * hd * S * (S + 1)        # 5 products, causal half
+    flops = FA.attention_bwd_flops(B, H, S, S, hd, True, None)
     nbytes = (2 * (3 * B * S * H * hd + 2 * B * S * Kh * hd) + 4 * B * H * S
               + 2 * (B * S * H * hd + 2 * B * S * Kh * hd))
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
@@ -1288,10 +1300,7 @@ def phase_hybrid_parity():
         *ins, out_dtype=torch.float32), iters=3)
     nbytes = (2 * B * NH * S * P + 4 * B * NH * S * P + 2 * 4 * B * NH * S
               + 2 * 2 * B * S * N)
-    # the reference's 256-row chunks: C B^T, its mask, W (x dt), the
-    # incoming state's term and the state update
-    per_chunk = 2 * c * c * N + c * c + 2 * c * c * P + 4 * c * N * P
-    flops = B * NH * math.ceil(S / c) * per_chunk
+    flops = MS.scan_flops(B, NH, S, P, N, c)
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
     rows.append({
         "name": "mamba2_scan", "route": "cuda",
@@ -1594,7 +1603,6 @@ XLSTM = "xlstm-125m"
 # MLSTM_BF16_ATOL (one bf16 rounding either side)
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 MLSTM_BF16_ATOL = 1e-2
-MLSTM_CHUNK = 64                 # the mLSTM kernel's chunk rows
 
 
 def _mlstm_inputs(gen, B, NH, S, hd, dtype):
@@ -1612,19 +1620,6 @@ def _mlstm_inputs(gen, B, NH, S, hd, dtype):
                                     device="cuda") + 2.0)
     return tuple(t.to(dtype).transpose(1, 2) for t in (q, k, v)) + (
         logi.transpose(1, 2), logf.transpose(1, 2))
-
-
-def mlstm_cost(B, NH, S, hd, in_bytes=2, out_bytes=4):
-    """(bytes, flops) the chunkwise mLSTM needs: q, k, v read once, logi
-    and logf read once, y written once; per 64-row chunk the causal half
-    of q kᵀ and of W v, q C, the state update of C, q n and n."""
-    nbytes = B * NH * S * (3 * hd * in_bytes + 2 * 4 + hd * out_bytes)
-    flops = 0
-    for s0 in range(0, S, MLSTM_CHUNK):
-        c = min(MLSTM_CHUNK, S - s0)
-        tri = c * (c + 1) // 2
-        flops += 2 * tri * hd * 2 + 2 * c * hd * hd * 2 + 2 * c * hd * 2
-    return nbytes, B * NH * flops
 
 
 def phase_xlstm_parity():
@@ -1677,7 +1672,7 @@ def phase_xlstm_parity():
                        kernels=MLSTM_BF16)
     plain, _ = time_ms(lambda: MK.mlstm_chunkwise_plain(
         *ins, out_dtype=torch.float32), iters=3)
-    nbytes, flops = mlstm_cost(B, NH, S, hd)
+    nbytes, flops = MK.mlstm_cost(B, NH, S, hd)
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
     row = {
         "name": "mlstm_chunkwise", "route": "cuda",
@@ -3343,6 +3338,162 @@ def phase_config_sweep() -> dict:
     return total
 
 
+# --------------------------------------------------- dry-run vs the card
+# measured peak bytes over the dry-run's prediction for the same rank's
+# step (PERF.md section 6 derives it from the allocator's rounding and
+# the kernels' workspaces)
+DRYRUN_PEAK_BAND = (0.95, 1.10)
+DRYRUN_STEPS = 5
+DRYRUN_DEVICE = "cuda"           # a CPU rehearsal sets "cpu"
+FLAT_SHAPE = (2055, 65536)       # the multi-host flat buffer, f32
+
+
+def phase_dryrun_check() -> dict:
+    """29. The dry-run of smollm-135m x train_4k (dp over model, 16x16)
+    held against rank 0's program on the card; then int8 compression on
+    the card against the CPU, and the perf sentry. Returns the step's
+    launches."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import SHAPES_BY_NAME, ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import meta
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.optim import AdamW
+    from repro_torch.optim import compression as comp
+    from repro_torch.roofline.analytical import analytic_terms
+    from repro_torch.train.step import build_train_step
+
+    t0 = time.perf_counter()
+    res = dryrun.run_cell("smollm-135m", "train_4k", dp_over_model=True)
+    if res["status"] != "ok":
+        fail(f"dryrun: {res.get('error')}\n{res.get('trace', '')}")
+    t_trace = time.perf_counter() - t0
+    cfg = get_config("smollm-135m")
+    shape = SHAPES_BY_NAME["train_4k"]
+    pred_flops = res["roofline"]["flops"] / 256
+    bound = analytic_terms(cfg, shape, HW, chips=256, tp=1)
+
+    api, opt = get_api(cfg), AdamW()
+    step = build_train_step(api, opt, remat=True)
+    dev = DRYRUN_DEVICE
+    params = api.init_params(torch.Generator(dev).manual_seed(0), dev)
+    opt_state = opt.init(params)
+    batch = api.make_inputs(ShapeConfig("rank", shape.seq_len, 1, "train"),
+                            seed=0, device=dev)
+    # one step first: kernel loads and the cuBLAS workspace are set-up;
+    # its garbage collected, so none is freed inside the measured step
+    params, opt_state, _ = step.fn(params, opt_state, batch)
+    gc.collect()
+    torch.cuda.synchronize()
+    args = sum(t.numel() * t.element_size() for t in
+               dryrun._tensors((params, opt_state, batch)))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0
+    FA.flash_attention_bwd.launches = 0
+    ledger = dryrun.Ledger((params, opt_state, batch))
+    with meta.count_work() as work, ledger:
+        new_p, new_o, m = step.fn(params, opt_state, batch)
+        del new_p, new_o
+    torch.cuda.synchronize()
+    measured = args + torch.cuda.max_memory_allocated() - held
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "flash_attention_bwd": FA.flash_attention_bwd.launches}
+    counted = ledger.flops.get_total_flops() + sum(
+        w["flops"] for w in work.values())
+    loss = m["loss"].item()
+    ledger_peak = ledger.peak
+    del ledger, m
+    dts = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step.fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t1)
+        del out
+    med = statistics.median(dts)
+    ratio = measured / res["peak_bytes"]
+    print(f"dryrun: smollm-135m x train_4k, dp over model on 16x16, rank 0 "
+          f"traced in {t_trace:.1f} s; predicted peak {res['peak_bytes']} "
+          f"bytes (arguments {res['argument_bytes']}), measured on the "
+          f"card {measured} (arguments {args}, held before the step "
+          f"{held}, the step's own "
+          f"{measured - args} against {res['bytes_per_device']} "
+          f"predicted): measured/predicted {ratio:.4f}, band "
+          f"{DRYRUN_PEAK_BAND}")
+    print(f"dryrun: FLOPs a step predicted {pred_flops:.6e}, counted on the "
+          f"card {counted:.6e} (ratio {counted / pred_flops:.6f}; kernels "
+          f"{ {k: w['flops'] for k, w in work.items()} }); the same "
+          f"ledger over the card's tensors: the step's own peak "
+          f"{ledger_peak} bytes")
+    print(f"dryrun: median step {med:.4f} s over {DRYRUN_STEPS} (all "
+          f"{[round(x, 4) for x in dts]}), analytic per-GPU bound "
+          f"{bound['step_time']:.4f} s ({bound['bottleneck']}; compute "
+          f"{bound['t_compute']:.4f}, memory {bound['t_memory']:.4f}, "
+          f"collective {bound['t_collective']:.4f}), "
+          f"{med / bound['step_time']:.2f}x the bound; loss {loss:.4f}; "
+          f"launches {launches}")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        fail(f"dryrun: measured/predicted peak {ratio} outside "
+             f"{DRYRUN_PEAK_BAND}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"dryrun: an attention kernel was not launched: {launches}")
+    if not math.isfinite(loss):
+        fail(f"dryrun: loss {loss}")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+
+    # int8 compression with error feedback at the flat buffer's shape
+    gen = torch.Generator().manual_seed(0)
+    g = torch.randn(FLAT_SHAPE, generator=gen) * 1e-2
+    r0 = torch.randn(FLAT_SHAPE, generator=gen) * 1e-5
+    q_c, s_c, st_c = comp.compress(g, comp.EFState(residual=r0))
+    gd, rd = g.to(dev), r0.to(dev)
+    q_d, s_d, st_d = comp.compress(gd, comp.EFState(residual=rd))
+    torch.cuda.synchronize()
+    x = (g + r0) / s_c
+    tie = (x - x.floor() - 0.5).abs() <= torch.finfo(torch.float32).eps \
+        * x.abs().clamp_min(1.0)
+    s_err = abs(s_d.item() - s_c.item()) / s_c.item()
+    q_bad = int(((q_d.cpu() != q_c) & ~tie).sum())
+    r_err = (st_d.residual.cpu() - st_c.residual).abs().max().item()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        q, s, _ = comp.compress(gd, comp.EFState(residual=rd))
+        comp.decompress(q, s)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 10
+    print(f"compression: {FLAT_SHAPE} f32 on the card vs the CPU: scale "
+          f"rel err {s_err:.3e}, q mismatches off the .5 ties {q_bad} "
+          f"({int(tie.sum())} ties), residual max err {r_err:.3e}; "
+          f"compress + decompress "
+          f"{ms:.4f} ms on the card ({4 * g.numel() / 1e6:.1f} MB f32 -> "
+          f"{comp.compressed_bytes(g)[1] / 1e6:.1f} MB int8)")
+    if not (s_err <= 1e-7 and q_bad == 0 and r_err <= 1e-6):
+        fail("compression: the card disagrees with the CPU")
+    del gd, rd, q_d, st_d, q, s
+
+    r = subprocess.run([sys.executable, "-m", "repro_torch.obs.regress",
+                        "--fresh", HERE], capture_output=True, text=True,
+                       timeout=120, cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=SRC))
+    print(f"regress: exit {r.returncode}: "
+          f"{r.stdout.strip().splitlines()[-1] if r.stdout else r.stderr}")
+    if r.returncode != 0:
+        fail(f"regress over the committed BENCH_*.json: {r.stdout}"
+             f"{r.stderr}")
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3404,6 +3555,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, v in phase_multihost_socket().items():
         by_path["multihost"][k] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["dryrun_check"] = phase_dryrun_check()
     by_path.update(families)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0)

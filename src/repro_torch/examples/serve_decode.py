@@ -2,8 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode [--device cpu]
 
-The reference example serves reduced qwen2.5-3b, a config the port does
-not register yet (ROADMAP A.8); this one serves reduced smollm-135m.
+Serves reduced qwen2.5-3b (QKV biases, tied embedding), as the
+reference example does: ten 6-token prompts through 4 slots.
 """
 import argparse
 
@@ -13,20 +13,15 @@ import torch
 from ..models.registry import get_api, get_config
 from ..serve.engine import Request, ServeEngine
 
+ARCH = "qwen2.5-3b"
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
 
-    cfg = get_config("smollm-135m").reduced()
-    api = get_api(cfg)
-    params = api.init_params(torch.Generator(args.device).manual_seed(0),
-                             args.device)
-    eng = ServeEngine(api, params, batch=4, window=64)
-
+def serve(api, params, *, batch: int = 4, window: int = 64):
+    """The reference example's run on ``params``: returns (requests,
+    decode steps)."""
+    eng = ServeEngine(api, params, batch=batch, window=window)
     rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 6)
+    reqs = [Request(rid=i, prompt=rng.integers(0, api.cfg.vocab_size, 6)
                     .astype(np.int32), max_new=10) for i in range(10)]
     for r in reqs:
         eng.submit(r)
@@ -36,7 +31,19 @@ def main(argv=None) -> int:
         if eng.step() == 0 and not eng.queue:
             break
         steps += 1
+    return reqs, steps
 
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(ARCH).reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator(args.device).manual_seed(0),
+                             args.device)
+    reqs, steps = serve(api, params)
     assert all(r.done for r in reqs)
     print(f"served {len(reqs)} requests in {steps} decode steps "
           f"(batch=4 slots, continuous refill)")

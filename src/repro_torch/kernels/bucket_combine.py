@@ -19,7 +19,8 @@ Pallas guard does.
 tensor goes to the hand-written kernel ``csrc/bucket_combine.cu`` or
 raises. On the card the gate must be an int32 tensor on the same device:
 it is never read back to the host, so a sync costs no host round trip
-per round.
+per round. A ``meta`` tensor (the dry-run's, ``kernels/meta.py``) gets
+an empty output; either reports one operation an element.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, meta
 
 # The bucket layout's cap on one bucket row (3 operands of the TPU kernel
 # had to fit VMEM). The CUDA kernel walks any row length, so the wrapper
@@ -46,6 +47,12 @@ def combine_ref(acc: torch.Tensor, y: torch.Tensor, gate,
     if op == "add":
         return acc + torch.where(g, y, torch.zeros_like(y))
     return torch.where(g, y, acc)
+
+
+def _meta(acc, y, gate):
+    out = torch.empty_like(acc, memory_format=torch.contiguous_format)
+    meta.record("bucket_combine", acc.numel(), meta.nbytes(acc, y, out))
+    return out
 
 
 _fn = []
@@ -77,6 +84,11 @@ def bucket_combine(acc: torch.Tensor, y: torch.Tensor, gate, *,
         return acc
     if acc.device.type == "cpu":
         return combine_ref(acc, y, gate, op=op)
+    if acc.device.type == "meta":
+        pl = getattr(acc, "placements", None)
+        gpl = (meta.restrict(pl, range(gate.ndim))
+               if isinstance(gate, torch.Tensor) else None)
+        return meta.run(_meta, (acc, y, gate), (pl, pl, gpl), pl)
     n = acc.shape[0] if acc.ndim == 3 else 1
     if (acc.device.type != "cuda" or y.device != acc.device
             or not isinstance(gate, torch.Tensor)
@@ -106,6 +118,9 @@ def bucket_combine(acc: torch.Tensor, y: torch.Tensor, gate, *,
         raise RuntimeError(f"bucket_combine kernel launch failed: "
                            f"CUDA error {rc}")
     bucket_combine.launches += 1
+    if meta.counting():
+        meta.record("bucket_combine", acc.numel(),
+                    meta.nbytes(acc, y, out))
     return out
 
 

@@ -29,6 +29,12 @@ from that LSE. A CPU tensor keeps the plain ``attention_ref``, which
 autograd differentiates (``attention_bwd_ref`` is that gradient as a
 function). Each wrapper counts its own launches, one a call whatever the
 number of CUDA launches inside; a recomputed forward (remat) counts again.
+
+A ``meta`` tensor (the dry-run's, ``kernels/meta.py``) takes the same
+path as a CUDA tensor with empty outputs of the kernels' shapes, the
+forward's LSE and the backward's scratch included, and reports the
+work of ``attention_flops`` / ``attention_bwd_flops`` instead of
+launching; no launch is counted.
 """
 from __future__ import annotations
 
@@ -38,10 +44,33 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, meta
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 112, 128)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool,
+                  sliding_window: Optional[int]) -> int:
+    """The (query, key) pairs the masks leave visible: for causal rows
+    ``i``, ``min(i + 1, window)`` keys each."""
+    if not causal:
+        return Sq * Sk
+    w = min(sliding_window or Sq, Sq)
+    return w * (w + 1) // 2 + (Sq - w) * w
+
+
+def attention_flops(B: int, H: int, Sq: int, Sk: int, hd: int,
+                    causal: bool, sliding_window: Optional[int]) -> int:
+    """The forward's products, q kᵀ and P v over the visible pairs."""
+    return 4 * B * H * hd * visible_pairs(Sq, Sk, causal, sliding_window)
+
+
+def attention_bwd_flops(B: int, H: int, Sq: int, Sk: int, hd: int,
+                        causal: bool, sliding_window: Optional[int]) -> int:
+    """The backward's five products over the visible pairs: q kᵀ again,
+    dO vᵀ, Pᵀ dO, dS k and dSᵀ q."""
+    return 10 * B * H * hd * visible_pairs(Sq, Sk, causal, sliding_window)
 
 
 def _masked_scores(q, k, causal, sliding_window):
@@ -162,14 +191,22 @@ def _check(name, tensors, q, k):
 
 
 def _forward(q, k, v, causal, sliding_window, want_lse):
-    """Launch the forward kernel; returns (out, lse or None)."""
-    _check("flash_attention", (q, k, v), q, k)
+    """Launch the forward kernel; returns (out, lse or None). On meta
+    tensors, the empty outputs and the kernel's work recorded."""
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
+    if q.device.type != "meta":
+        _check("flash_attention", (q, k, v), q, k)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if meta.counting():
+        meta.record("flash_attention",
+                    attention_flops(B, H, Sq, Sk, hd, causal, sliding_window),
+                    meta.nbytes(q, k, v, out, lse))
+    if q.device.type == "meta":
+        return out, lse
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     fn = _kernel("flash_attention", q.dtype)
@@ -200,15 +237,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  sliding_window=sliding_window)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    _check("flash_attention_bwd", (q, k, v, out, dout), q, k)
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
+    if q.device.type != "meta":
+        _check("flash_attention_bwd", (q, k, v, out, dout), q, k)
     if lse is None or lse.shape != (B, H, Sq) or not lse.is_contiguous() \
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError("flash_attention_bwd: lse must be the forward's "
                          "(B, H, Sq) f32 log-sum-exp")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     scratch = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if meta.counting():
+        meta.record("flash_attention_bwd",
+                    attention_bwd_flops(B, H, Sq, Sk, hd, causal,
+                                        sliding_window),
+                    meta.nbytes(q, k, v, out, dout, lse, dq, dk, dv))
+    if q.device.type == "meta":
+        return dq, dk, dv
     ts = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(s for t in ts
                                          for s in t.stride()[:3]))
@@ -259,6 +304,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal,
                              sliding_window=sliding_window)
+    if q.device.type == "meta":
+        # batch and heads stay sharded where GQA's groups divide; k and v
+        # (and out) take q's layout
+        pl = meta.placements(q, {0: q.shape[0], 1: k.shape[1]})
+        return meta.run(lambda *t: _call(*t, causal, sliding_window),
+                        (q, k, v), (pl, pl, pl), pl)
+    return _call(q, k, v, causal, sliding_window)
+
+
+def _call(q, k, v, causal, sliding_window):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, sliding_window)
     return _forward(q, k, v, causal, sliding_window, want_lse=False)[0]

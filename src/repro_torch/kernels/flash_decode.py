@@ -9,7 +9,10 @@ A row with no valid slot returns the mean of v, as the reference does.
 
 ``flash_decode`` takes the plain version only for CPU tensors; a CUDA
 tensor goes to the hand-written kernel ``csrc/flash_decode.cu`` or
-raises. It is one launch (one count) a call: a thread-block cluster per
+raises; a ``meta`` tensor (the dry-run's, ``kernels/meta.py``) gets an
+empty output. Either reports ``decode_flops`` over every slot (valid or
+not: the mask is never read back). It is one launch (one count) a call:
+a thread-block cluster per
 (batch row, KV head) splits the cache into ranges of 64-key tiles,
 reads no K or V of a tile whose slots are all invalid (unless the row
 has no valid slot at all), and merges the splits' softmax states
@@ -26,7 +29,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, meta
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -45,6 +48,20 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(valid[:, None, :] > 0, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhw,bhwd->bhd", w, vr).to(q.dtype)
+
+
+def decode_flops(H: int, hd: int, n_valid: int) -> int:
+    """q kᵀ and P v over the valid slots (``n_valid`` over all rows)."""
+    return 4 * H * hd * n_valid
+
+
+def _meta(q, k, v, valid):
+    """Every slot counted valid: a meta cache holds no positions."""
+    B, H, hd = q.shape
+    out = torch.empty((B, H, hd), dtype=q.dtype, device="meta")
+    meta.record("flash_decode", decode_flops(H, hd, valid.numel()),
+                meta.nbytes(q, k, v, valid, out))
+    return out
 
 
 _lib = {}
@@ -73,6 +90,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_ref(q, k, v, valid)
     B, H, hd = q.shape
     Kh, W = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        # batch, and heads where the KV heads divide; a sharded window is
+        # gathered (the kernel merges its splits inside one launch)
+        pl = meta.placements(q, {0: B, 1: Kh})
+        return meta.run(_meta, (q, k, v, valid),
+                        (pl, pl, pl, meta.restrict(pl, (0,))), pl)
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in (k, v, valid)):
         raise ValueError(f"flash_decode: tensors on {q.device}, {k.device},"
@@ -106,6 +129,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"CUDA error {rc}")
     flash_decode.launches += 1
+    if meta.counting():
+        meta.record("flash_decode", decode_flops(H, hd, valid.numel()),
+                    meta.nbytes(q, k, v, valid, out))
     return out
 
 

@@ -24,7 +24,10 @@ asserts ``S % chunk == 0``. The kernel always works in 64-row chunks;
 ``chunk`` is the plain version's, and changes only rounding.
 
 The kernel is forward-only, as the Pallas kernel is: a CUDA call that
-autograd would have to differentiate raises. The plain version stays
+autograd would have to differentiate raises. A ``meta`` tensor (the
+dry-run's, ``kernels/meta.py``) gets an empty y, and raises where a
+CUDA tensor would; either reports ``scan_flops``' work. The plain
+version stays
 differentiable by autograd (the CPU tests hold its gradient against
 ``jax.grad`` of the reference).
 """
@@ -36,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, meta
 
 DIMS = (16, 32, 64)     # the head dims P and state dims N the kernel takes
 BACKWARD_ITEM = "ROADMAP B.6 (the SSD scan's backward, hybrid training)"
@@ -92,6 +95,25 @@ def mamba2_scan_plain(x: torch.Tensor, Bmat: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
+def scan_flops(B: int, NH: int, S: int, P: int, N: int,
+               chunk: int = 256) -> int:
+    """The reference's ``chunk``-row chunks: C Bᵀ, its mask, W (x dt),
+    the incoming state's term and the state update."""
+    c = chunk
+    per_chunk = 2 * c * c * N + c * c + 2 * c * c * P + 4 * c * N * P
+    return B * NH * math.ceil(S / c) * per_chunk
+
+
+def _meta(x, Bmat, Cmat, a, dt, chunk, out_dtype):
+    B, NH, S, P = x.shape
+    y = torch.empty((B, S, NH, P), dtype=out_dtype,
+                    device="meta").transpose(1, 2)
+    meta.record("mamba2_scan", scan_flops(B, NH, S, P, Bmat.shape[-1],
+                                          chunk),
+                meta.nbytes(x, Bmat, Cmat, a, dt, y))
+    return y
+
+
 _fns = {}
 
 
@@ -127,6 +149,11 @@ def mamba2_scan(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
             f"{BACKWARD_ITEM}")
     B, NH, S, P = x.shape
     N = Bmat.shape[-1]
+    if x.device.type == "meta":
+        pl = meta.placements(x, {0: B, 1: NH})
+        bc = meta.restrict(pl, (0,))          # B and C have no head dim
+        return meta.run(lambda *t: _meta(*t, chunk, out_dtype), ts,
+                        (pl, bc, bc, pl, pl), pl)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError("mamba2_scan: tensors on "
                          f"{', '.join(str(t.device) for t in ts)}")
@@ -161,6 +188,9 @@ def mamba2_scan(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
         raise RuntimeError(f"mamba2_scan kernel launch failed: "
                            f"CUDA error {rc}")
     mamba2_scan.launches += 1
+    if meta.counting():
+        meta.record("mamba2_scan", scan_flops(B, NH, S, P, N, chunk),
+                    meta.nbytes(x, Bmat, Cmat, a, dt, y))
     return y
 
 

@@ -29,9 +29,11 @@ kernel works in 64-row chunks, the plain version in ``chunk``-row ones
 (the reference model's 256 when the wrapper calls it).
 
 The kernel is forward-only, as the Pallas kernel is: a CUDA call that
-autograd would have to differentiate raises. The plain version stays
-differentiable by autograd (the CPU tests hold its gradient against
-``jax.grad`` of the reference).
+autograd would have to differentiate raises. A ``meta`` tensor (the
+dry-run's, ``kernels/meta.py``) gets an empty y, and raises where a
+CUDA tensor would; either reports ``mlstm_cost``'s work. The plain
+version stays differentiable by autograd (the CPU tests hold its
+gradient against ``jax.grad`` of the reference).
 """
 from __future__ import annotations
 
@@ -41,11 +43,12 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, meta
 from .flash_attention import _tma_layout_ok
 
 DIMS = (32, 64, 384)    # the head dims the kernel takes
 TC_DIM = 384            # bf16 at this head dim runs on the tensor cores
+CHUNK = 64              # the kernel's chunk rows
 BACKWARD_ITEM = "ROADMAP B.7 (the mLSTM kernel's backward, xLSTM training)"
 
 
@@ -104,6 +107,31 @@ def mlstm_chunkwise_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(out_dtype or q.dtype)
 
 
+def mlstm_cost(B: int, NH: int, S: int, hd: int, in_bytes: int = 2,
+               out_bytes: int = 4):
+    """(bytes, flops) the chunkwise mLSTM needs: q, k, v read once, logi
+    and logf read once, y written once; per ``CHUNK``-row chunk the
+    causal half of q kᵀ and of W v, q C, the state update of C, q n and
+    n."""
+    nbytes = B * NH * S * (3 * hd * in_bytes + 2 * 4 + hd * out_bytes)
+    flops = 0
+    for s0 in range(0, S, CHUNK):
+        c = min(CHUNK, S - s0)
+        tri = c * (c + 1) // 2
+        flops += 2 * tri * hd * 2 + 2 * c * hd * hd * 2 + 2 * c * hd * 2
+    return nbytes, B * NH * flops
+
+
+def _meta(q, k, v, logi, logf, out_dtype):
+    B, NH, S, hd = q.shape
+    y = torch.empty((B, S, NH, hd), dtype=out_dtype,
+                    device="meta").transpose(1, 2)
+    nb, flops = mlstm_cost(B, NH, S, hd, q.element_size(),
+                           y.element_size())
+    meta.record("mlstm_chunkwise", flops, nb)
+    return y
+
+
 _fns = {}
 
 
@@ -138,6 +166,10 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"mlstm_chunkwise: the CUDA kernel is forward-only; see "
             f"{BACKWARD_ITEM}")
     B, NH, S, hd = q.shape
+    if q.device.type == "meta":
+        pl = meta.placements(q, {0: B, 1: NH})
+        return meta.run(lambda *t: _meta(*t, out_dtype), ts,
+                        (pl,) * 5, pl)
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError("mlstm_chunkwise: tensors on "
                          f"{', '.join(str(t.device) for t in ts)}")
@@ -182,6 +214,10 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"mlstm_chunkwise kernel launch failed: "
                            f"CUDA error {rc}")
     mlstm_chunkwise.launches += 1
+    if meta.counting():
+        nb, flops = mlstm_cost(B, NH, S, hd, q.element_size(),
+                               y.element_size())
+        meta.record("mlstm_chunkwise", flops, nb)
     return y
 
 

@@ -27,6 +27,7 @@ import torch
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_decode import flash_decode
+from ..sharding import constrain
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -65,6 +66,11 @@ def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    # the head split's layout, set on the flat projection before the view
+    # (a DTensor cannot split a dim sharded unevenly over its heads)
+    q = constrain(q, "batch", None, "heads")
+    k = constrain(k, "batch", None, "kv_heads")
+    v = constrain(v, "batch", None, "kv_heads")
     return (q.view(B, S, n_heads, head_dim),
             k.view(B, S, n_kv_heads, head_dim),
             v.view(B, S, n_kv_heads, head_dim))
@@ -75,8 +81,8 @@ def attention(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
               rope_theta: float, causal: bool = True,
               sliding_window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill / training self-attention. x: (B,S,D); positions: (B,S) =
-    arange(S) per row (the kernel masks causality on indices, as the
+    """Prefill / training self-attention. x: (B,S,D); positions: (B,S) or
+    (1,S) = arange(S) per row (the kernel masks causality on indices, as the
     Pallas kernel does). Returns (out (B,S,D), k, v), k post-RoPE, both
     (B,S,Kh,hd): the cache handoff, so the projections are not
     recomputed. Differentiable: on the card the gradient runs the
@@ -90,8 +96,8 @@ def attention(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
                         sliding_window=sliding_window)
-    o = o.transpose(1, 2).reshape(B, S, n_heads * head_dim)
-    return o @ p["wo"], k, v
+    o = constrain(o.transpose(1, 2), "batch", None, "heads", None)
+    return o.reshape(B, S, n_heads * head_dim) @ p["wo"], k, v
 
 
 # ---------------------------------------------------------------------------
@@ -137,12 +143,9 @@ def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
         inside = inside & live
     bidx = torch.arange(B, device=x.device)
     idx = torch.where(inside, slot, torch.zeros_like(slot)).long()
-    keep = inside[:, None, None]
-    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
-        buf = cache[name]
-        buf[bidx, idx] = torch.where(keep, new, buf[bidx, idx])
-    cache["pos"][bidx, idx] = torch.where(inside, t.to(torch.int32),
-                                          cache["pos"][bidx, idx])
+    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]),
+                      ("pos", t.to(torch.int32))):
+        _write_slot(cache[name], bidx, idx, inside, new)
     cpos = cache["pos"]
     qi = t[:, None]
     valid = (cpos >= 0) & (cpos <= qi)
@@ -151,6 +154,43 @@ def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
     o = flash_decode(q[:, 0], cache["k"].permute(0, 2, 1, 3),
                      cache["v"].permute(0, 2, 1, 3), valid.to(torch.int32))
     return o.reshape(B, 1, n_heads * head_dim) @ p["wo"], cache
+
+
+def _write_slot(buf: torch.Tensor, bidx: torch.Tensor, idx: torch.Tensor,
+                keep: torch.Tensor, new: torch.Tensor) -> None:
+    """``buf[b, idx[b]] = new[b]`` in place, in the rows where ``keep``;
+    ``bidx`` is ``arange(B)``."""
+    if type(buf) is not torch.Tensor:
+        return _write_slot_shards(buf, idx, keep, new)
+    keep = keep.view(-1, *[1] * (new.ndim - 1))
+    buf[bidx, idx] = torch.where(keep, new, buf[bidx, idx])
+
+
+def _write_slot_shards(buf, idx, keep, new) -> None:
+    """``_write_slot`` on a DTensor cache with ``meta`` shards (the
+    dry-run's): each rank writes the rows of its own shard, in place, as
+    DTensor cannot index-put into a sharded buffer. The window (dim 1) is
+    never resharded; on meta shards only the shapes matter."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if buf.device.type != "meta":
+        raise ValueError("_write_slot: a DTensor cache must have meta "
+                         "shards")
+    mesh = buf.device_mesh
+
+    def local(x, dims):
+        """x's local shard, laid out as buf's dims ``dims`` are (x's dim
+        i is buf's dim dims[i])."""
+        pl = tuple(Shard(dims.index(p.dim))
+                   if isinstance(p, Shard) and p.dim in dims
+                   else Replicate() for p in buf.placements)
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, pl).to_local()
+    rest = (0,) + tuple(range(2, buf.ndim))       # buf's dims but the window
+    lbuf = buf.to_local()
+    _write_slot(lbuf, torch.arange(lbuf.shape[0], device=lbuf.device),
+                local(idx, (0,)), local(keep, (0,)), local(new, rest))
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +206,7 @@ def cross_attention(p: Dict, x: torch.Tensor,
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.view(B, S, n_heads, head_dim)
+    q = constrain(q, "batch", None, "heads").view(B, S, n_heads, head_dim)
     k, v = (t.transpose(1, 2) for t in enc_kv)        # (B,Kh,S_enc,hd)
     if S == 1:
         valid = torch.ones((B, k.shape[2]), dtype=torch.int32,
@@ -188,5 +228,7 @@ def cross_kv(p: Dict, enc_out: torch.Tensor, *, n_kv_heads: int,
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
+    k = constrain(k, "batch", None, "kv_heads")
+    v = constrain(v, "batch", None, "kv_heads")
     return (k.view(B, S, n_kv_heads, head_dim),
             v.view(B, S, n_kv_heads, head_dim))

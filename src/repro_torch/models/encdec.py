@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from . import attention as A
 from .layers import (embed_apply, embed_init, mlp_apply, mlp_init, rmsnorm,
                      unembed_apply)
@@ -106,16 +107,17 @@ def param_spec(cfg: ModelConfig) -> Params:
 def encode(cfg: ModelConfig, params: Params,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed embeddings -> (B, S_enc, D)."""
-    B, S, _ = frames.shape
-    h = frames.to(_dt(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=h.device)[None].expand(B, S)
+    S = frames.shape[1]
+    h = constrain(frames.to(_dt(cfg)), "batch", None, None)
+    # (1, S), broadcast over the batch by RoPE
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)[None]
     for pl in _unstack(params["enc_blocks"], cfg.encoder_layers):
         a = A.attention(pl["attn"], rmsnorm(h, pl["ln1"], cfg.norm_eps),
                         positions, rope_theta=cfg.rope_theta, causal=False,
                         **_attn_kw(cfg))[0]
         h = h + a
         h = h + mlp_apply(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+        h = constrain(h, "batch", None, None)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -133,7 +135,7 @@ def _dec_block(cfg: ModelConfig, pl: Dict, h: torch.Tensor,
                               rmsnorm(h, pl["lnx"], cfg.norm_eps), kv,
                               **_attn_kw(cfg))
     h = h + mlp_apply(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
-    return h, kv[0], kv[1]
+    return constrain(h, "batch", None, None), kv[0], kv[1]
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -148,10 +150,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         raise ValueError("forward: remat is for training; the cache "
                          "handoff is a serving path")
     enc_out = encode(cfg, params, frames)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     h = embed_apply(params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=h.device)[None].expand(B, S)
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)[None]
     ck, cv = [], []
     for pl in _unstack(params["dec_blocks"], cfg.n_layers):
         if remat:

@@ -14,6 +14,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                layers: Optional[int], dtype: torch.dtype, device,
@@ -71,7 +73,8 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 def mlp_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ gate) * (x @ up)) @ down."""
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    h = constrain(F.silu(x @ p["gate"]) * (x @ p["up"]), "batch", None, "ff")
+    return h @ p["down"]
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,
@@ -82,11 +85,27 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embed_apply(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+    if type(tokens) is torch.Tensor:
+        return constrain(emb[tokens], "batch", None, None)
+    return constrain(_embed_shards(emb, tokens), "batch", None, None)
+
+
+def _embed_shards(emb, tokens):
+    """``emb[tokens]`` on the dry-run's DTensors. A replicated table is
+    read per rank at its own token rows (``local_map``: DTensor has no
+    rule for an index sharded over two mesh axes, the data-parallel-only
+    layout's); a vocab-sharded one takes DTensor's own lookup."""
+    from ..kernels import meta
+    if any(p.is_shard() for p in emb.placements):
+        return emb[tokens]
+    pl = tokens.placements
+    return meta.run(lambda e, t: e[t], (emb, tokens),
+                    (emb.placements, pl), pl,
+                    in_grad_placements=(meta.partial_over(pl), pl))
 
 
 def unembed_apply(emb_or_head: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
     """Logits in the weights' dtype: ``x @ w.T`` for the (vocab, d_model)
     embedding (tied) or head."""
-    return x @ emb_or_head.t()
+    return constrain(x @ emb_or_head.t(), "batch", None, "vocab")

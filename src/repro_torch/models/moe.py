@@ -10,8 +10,9 @@ x, the gates renormalised over the top k, each expert's queue filled in
 token-major ``(Tg·k)`` order up to its capacity
 ``C = min(int(max(1, cf·Tg·k/E)), Tg)`` (a token past it gets nothing
 from that expert), and the dispatch and combine one-hots cast to x's
-dtype before their products. The reference's sharding hints
-(``constrain``) have no counterpart on one card. Every product here is a
+dtype before their products. The two sharding hints (``constrain``)
+are the reference's; they act only under ``use_rules`` (the dry-run),
+and are no-ops on every serving and training path. Every product here is a
 plain large matrix product that the reference leaves to XLA outside any
 Pallas kernel, so it stays ``torch.einsum``.
 
@@ -27,6 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..sharding import constrain
 
 from .layers import dense_init
 
@@ -71,6 +74,32 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)``; on the dry-run's DTensors, per rank on
+    the shards (DTensor's einsum views a permuted shard it would have to
+    copy): each mesh dim keeps one sharded letter, a's if a is sharded
+    there, else b's; the output is sharded where that letter survives
+    and partial where it is summed over."""
+    if type(a) is torch.Tensor:
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    pa, pb, po = [], [], []
+    for qa, qb in zip(a.placements, b.placements):
+        c = (la[qa.dim] if isinstance(qa, Shard) else
+             lb[qb.dim] if isinstance(qb, Shard) else None)
+        pa.append(Shard(la.index(c)) if c and c in la else Replicate())
+        pb.append(Shard(lb.index(c)) if c and c in lb else Replicate())
+        po.append(Replicate() if c is None else
+                  Shard(out.index(c)) if c in out else Partial())
+    return local_map(lambda x, w: torch.einsum(eq, x, w),
+                     out_placements=(tuple(po),),
+                     in_placements=(tuple(pa), tuple(pb)),
+                     redistribute_inputs=True)(a, b)
+
+
 def moe_apply(p: Dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float,
               group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,16 +136,20 @@ def moe_apply(p: Dict, x: torch.Tensor, *, top_k: int,
     oh = onehot.float() * keep[..., None]
     # one-hot of the queue position, all zeros past the capacity
     posoh = (pos[..., None] == torch.arange(C, device=x.device)).float()
-    disp = torch.einsum("gtke,gtkc->gtec", oh, posoh)
+    disp = _einsum("gtke,gtkc->gtec", oh, posoh)
     # at most one k of a token names expert e, so folding the gate into
     # the first operand is the reference's three-way product exactly
-    comb = torch.einsum("gtke,gtkc->gtec", oh * gate_vals[..., None],
-                        posoh)
-    xin = torch.einsum("gtec,gtd->gecd", disp.to(x.dtype), xg)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["gate"])) \
-        * torch.einsum("gecd,edf->gecf", xin, p["up"])
-    out = torch.einsum("gecf,efd->gecd", h, p["down"])       # (G,E,C,D)
-    y = torch.einsum("gtec,gecd->gtd", comb.to(x.dtype), out)
+    comb = _einsum("gtke,gtkc->gtec", oh * gate_vals[..., None], posoh)
+    xin = _einsum("gtec,gtd->gecd", disp.to(x.dtype), xg)
+    # groups shard over the dp axes (token-parallel), experts over the EP
+    # axis: all-None constraints would force replication of the dispatch
+    # tensors across the mesh
+    xin = constrain(xin, "batch", "experts", None, None)     # (G,E,C,D)
+    h = F.silu(_einsum("gecd,edf->gecf", xin, p["gate"])) \
+        * _einsum("gecd,edf->gecf", xin, p["up"])
+    h = constrain(h, "batch", "experts", None, "expert_ff")
+    out = _einsum("gecf,efd->gecd", h, p["down"])             # (G,E,C,D)
+    y = _einsum("gtec,gecd->gtd", comb.to(x.dtype), out)
     y = y.reshape(G * Tg, D)[:T]
     # load-balancing auxiliary loss (Switch): E * sum(f_e * P_e)
     me = probs.mean(dim=(0, 1))

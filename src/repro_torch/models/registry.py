@@ -29,8 +29,45 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy in f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
+    if type(logits) is not torch.Tensor:       # the dry-run's DTensors
+        gold = _gather_shards(logits, targets.long()[..., None])
+        return torch.mean(lse[..., None] - gold)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+def _gather_shards(x, idx):
+    """``torch.gather(x, -1, idx)`` on DTensors, the gathered dim kept.
+    Logits whose vocab dim is not sharded are gathered per rank
+    (``local_map``: DTensor has no gather rule over two mesh axes of
+    one dim, the data-parallel-only layout's); vocab-sharded ones take
+    ``_GatherLast``."""
+    from ..kernels import meta
+    from torch.distributed.tensor import Shard
+    if any(isinstance(p, Shard) and p.dim == x.ndim - 1
+           for p in x.placements):
+        return _GatherLast.apply(x, idx)
+    pl = x.placements
+    return meta.run(lambda a, i: torch.gather(a, -1, i), (x, idx),
+                    (pl, pl), pl)
+
+
+class _GatherLast(torch.autograd.Function):
+    """``torch.gather(x, -1, idx)`` on DTensors, its dim kept (a
+    vocab-sharded gather carries a mask of that shape). Its gradient
+    starts from ``zeros_like(x)``, laid out as x is: the native formula's
+    ``new_zeros`` of x's size makes DTensor build the gradient
+    replicated, at the full global size."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(x, idx)
+        return torch.gather(x, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx = ctx.saved_tensors
+        return torch.zeros_like(x).scatter_add(-1, idx, g), None
 
 
 @dataclass(frozen=True)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba2_scan import mamba2_scan
+from ..sharding import constrain
 from .layers import dense_init
 
 
@@ -96,7 +97,7 @@ def _gated_norm_out(p: Dict, y: torch.Tensor, z: torch.Tensor,
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-5) * p["norm_w"].float()
-    return y.to(dtype) @ p["out_proj"]
+    return constrain(y.to(dtype), "batch", None, "ff") @ p["out_proj"]
 
 
 def ssm_apply(p: Dict, u: torch.Tensor, *, state: int, conv: int,

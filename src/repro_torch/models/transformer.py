@@ -43,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from ..utils import tree_leaves
 from . import attention as A
 from . import moe as MOE
@@ -259,9 +260,9 @@ def _block(cfg: ModelConfig, pl: Dict, h: torch.Tensor,
     (the cache handoff), aux the MoE layer's loss (None for an MLP)."""
     a, k, v = _attn(cfg, pl["attn"], rmsnorm(h, pl["ln1"], cfg.norm_eps),
                     positions)
-    h = h + a
+    h = constrain(h + a, "batch", None, None)
     y, aux = _ffn(cfg, pl, rmsnorm(h, pl["ln2"], cfg.norm_eps))
-    return h + y, k, v, aux
+    return constrain(h + y, "batch", None, None), k, v, aux
 
 
 def _ssm_block(cfg: ModelConfig, pl: Dict, h: torch.Tensor,
@@ -319,6 +320,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         if patches is None:
             raise ValueError(f"{cfg.name}: the VLM forward needs patches")
         h = torch.cat([patches.to(h.dtype), h], dim=1)
+    h = constrain(h, "batch", None, None)
     h, aux, ks, vs = _walk(cfg, params["blocks"], h, params.get("shared"),
                            remat=remat, want_cache=want_cache)
     logits = _head(cfg, params, h)
@@ -335,9 +337,9 @@ def _walk(cfg: ModelConfig, blocks: Params, h: torch.Tensor,
     ``h``, one scan element (a layer, or a group) at a time: (h, aux,
     ks, vs), aux the summed MoE losses (f32), the per-element caches
     when ``want_cache``."""
-    B, S, _ = h.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=h.device)[None].expand(B, S)
+    S = h.shape[1]
+    # (1, S), broadcast over the batch by RoPE
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)[None]
     if cfg.family == "hybrid":
         body = _hybrid_group
     elif cfg.slstm_every:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mlstm_kernel import mlstm_chunkwise
+from ..sharding import constrain
 from .layers import dense_init
 
 
@@ -95,9 +96,11 @@ def _mlstm_in(p: Dict, u: torch.Tensor, n_heads: int):
     hd = d_in // n_heads
     hz = u @ p["up"]
     h, z = hz[..., :d_in], hz[..., d_in:]
-    q = (h @ p["wq"]).unflatten(-1, (n_heads, hd))
-    k = (h @ p["wk"]).unflatten(-1, (n_heads, hd)) / math.sqrt(hd)
-    v = (h @ p["wv"]).unflatten(-1, (n_heads, hd))
+    # the head split's layout set on the flat projections (the dry-run's
+    # DTensors cannot split a dim sharded unevenly over the heads)
+    q, k, v = (constrain(h @ p[w], "batch", None, "heads").unflatten(
+        -1, (n_heads, hd)) for w in ("wq", "wk", "wv"))
+    k = k / math.sqrt(hd)
     hf = h.float()
     logi = hf @ p["wi"]
     logf = F.logsigmoid(hf @ p["wf"] + p["fb"])
@@ -211,21 +214,49 @@ def _slstm_cell(g_x: torch.Tensor, wr: torch.Tensor, c, n, m, h):
     return c_new, n_new, m_new, h_new
 
 
-def slstm_apply(p: Dict, u: torch.Tensor, *, n_heads: int) -> torch.Tensor:
-    """Sequential sLSTM over time. u: (B,S,D) -> (B,S,D)."""
-    B, S, D = u.shape
-    gx = _slstm_gates(p, u, n_heads)
-    wr = p["wr"].float()
-    c = torch.zeros((B, n_heads, D // n_heads), dtype=torch.float32,
-                    device=u.device)
+def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
+    """The sLSTM's time loop. gx: (B,S,NH,4hd) f32 -> h (B,S,NH,hd). On
+    ``meta`` tensors (the dry-run's) a closed form stands in for the
+    loop, as a kernel's meta rule does (``kernels/meta.py``): tens of
+    thousands of traced steps would dominate the trace."""
+    B, S, NH, hd4 = gx.shape
+    if gx.device.type == "meta":
+        from ..kernels import meta
+        hs = torch.empty((S, B, NH, hd4 // 4), device="meta")  # the steps'
+        y = torch.empty((B, S, NH, hd4 // 4), device="meta")   # h, stacked
+        del hs
+        # the recurrent product h wr of every step (the counted FLOPs of
+        # the loop's ops), its gates read and its state read and written
+        meta.record("slstm_scan", 2 * S * B * NH * (hd4 // 4) * hd4,
+                    meta.nbytes(gx, wr, y) + 8 * meta.nbytes(y))
+        return y
+    c = torch.zeros((B, NH, hd4 // 4), dtype=torch.float32,
+                    device=gx.device)
     n, h = c, c
     m = torch.full_like(c, -1e30)
     hs = []
     for t in range(S):
         c, n, m, h = _slstm_cell(gx[:, t], wr, c, n, m, h)
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, D)
-    return _rmsnorm_f32(y, p["norm_w"]).to(u.dtype) @ p["down"]
+    return torch.stack(hs, dim=1)
+
+
+def slstm_apply(p: Dict, u: torch.Tensor, *, n_heads: int) -> torch.Tensor:
+    """Sequential sLSTM over time. u: (B,S,D) -> (B,S,D). On the
+    dry-run's DTensors the loop runs per rank on its rows (batch rows
+    are independent)."""
+    B, S, D = u.shape
+    gx = _slstm_gates(p, u, n_heads)
+    wr = p["wr"].float()
+    if type(gx) is torch.Tensor:
+        y = _slstm_scan(gx, wr)
+    else:
+        from ..kernels import meta
+        pl = meta.placements(gx, {0: B})
+        y = meta.run(_slstm_scan, (gx, wr),
+                     (pl, meta.restrict(pl, ())), pl)
+    return _rmsnorm_f32(y.reshape(B, S, D), p["norm_w"]).to(u.dtype) \
+        @ p["down"]
 
 
 def slstm_state_shapes(batch: int, d_model: int, *, n_heads: int) -> Dict:

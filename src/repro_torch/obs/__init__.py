@@ -20,11 +20,12 @@ The always-on layer (DESIGN.md §14) rides on top:
 * ``recorder`` — bounded per-process flight rings flushed to
   ``*.flight.jsonl`` at failure edges; ``python -m
   repro_torch.obs.recorder`` checks coherence.
+* ``regress``  — the perf-regression sentry over ``BENCH_*.json``
+  (``python -m repro_torch.obs.regress``).
 
 ``hub.ObsHub`` glues them together on the coordinator;
 ``python -m repro_torch.obs.check`` asserts the invariants over an
-exported span log (CI). The reference's perf-regression sentry
-(``obs/regress.py``) is not ported yet (ROADMAP A.11).
+exported span log (CI).
 """
 from .hub import ObsHub, spans_path
 from .live import (ClusterWatermarks, LiveStreamer, WatermarkRegression,

@@ -264,6 +264,49 @@ def test_kernels_reject_what_they_cannot_take():
                                                     device="cuda"))
 
 
+def test_cuda_calls_launch_beside_the_meta_rules():
+    """The dry-run's meta rules take only meta tensors: a CUDA call of
+    each wrapper still launches its kernel (its counter rises by one)
+    and reports the same closed-form work as the meta rule does; a meta
+    call counts no launch."""
+    from repro_torch.kernels import meta
+    gen = torch.Generator("cuda").manual_seed(0)
+    q = _randn(gen, (1, 4, 64, 64), torch.bfloat16).requires_grad_(True)
+    kv = _randn(gen, (1, 2, 64, 64), torch.bfloat16).requires_grad_(True)
+    x = _randn(gen, (1, 2, 64, 64), torch.float32)
+    bc = _randn(gen, (1, 64, 64), torch.float32)
+    ad = torch.rand((1, 2, 64), generator=gen, device="cuda")
+    acc = _randn(gen, (2, 3, 64), torch.float32)
+    gate = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    calls = [
+        (FA.flash_attention, lambda: FA.flash_attention(q, kv, kv).sum()
+         .backward()),
+        (FD.flash_decode, lambda: FD.flash_decode(
+            q[:, :, 0].detach(), kv.detach(), kv.detach(),
+            torch.ones((1, 64), dtype=torch.int32, device="cuda"))),
+        (MS.mamba2_scan, lambda: MS.mamba2_scan(x, bc, bc, ad, ad)),
+        (MK.mlstm_chunkwise, lambda: MK.mlstm_chunkwise(
+            x, x, x, ad, ad)),
+        (BC.bucket_combine, lambda: BC.bucket_combine(acc, acc, gate)),
+    ]
+    for fn, call in calls:
+        n = fn.launches
+        with meta.count_work() as work:
+            call()
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1, fn.__name__
+        assert work[fn.__name__]["calls"] == 1
+    assert FA.flash_attention_bwd.launches > 0
+    n = FA.flash_attention.launches
+    with meta.count_work() as mwork:
+        FA.flash_attention(q.detach().to("meta"), kv.detach().to("meta"),
+                           kv.detach().to("meta"))
+    assert FA.flash_attention.launches == n
+    with meta.count_work() as cwork:
+        FA.flash_attention(q.detach(), kv.detach(), kv.detach())
+    assert mwork["flash_attention"] == cwork["flash_attention"]
+
+
 @pytest.mark.parametrize("overrides", [
     {}, {"n_heads": 6, "n_kv_heads": 2}, {"sliding_window": 5}],
     ids=["dense", "g3", "swa"])

@@ -9,7 +9,10 @@ bounds, point-to-point phasers, the live watermarks), the pipeline slice
 (``pipeline_exec``), the examples, whose import runs nothing, and the
 remaining families (models.moe, models.encdec, every config of
 ``configs.archs``) and the multi-host runtime (``runtime_dist``, the
-obs plane's trace, recorder, hub and CLIs).
+obs plane's trace, recorder, hub and CLIs), and the planning and tooling
+layer (the perf sentry ``obs.regress``, ``roofline``, int8 compression,
+the production mesh, the sharding rules, the dry-run, the kernels'
+meta rules, and ``train.step``'s serve-step builders).
 
 The multi-host runtime keeps the reference's control plane free of the
 array library: a control-only worker (``data: None``) never imports
@@ -85,13 +88,22 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.runtime_dist.worker",
               "repro_torch.obs.trace", "repro_torch.obs.recorder",
               "repro_torch.obs.hub", "repro_torch.obs.check",
-              "repro_torch.obs.watch"):
+              "repro_torch.obs.watch", "repro_torch.obs.regress",
+              "repro_torch.roofline", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.analytical",
+              "repro_torch.roofline.hlo_parse",
+              "repro_torch.optim.compression", "repro_torch.launch.mesh",
+              "repro_torch.sharding", "repro_torch.sharding.rules",
+              "repro_torch.sharding.policies", "repro_torch.launch.dryrun",
+              "repro_torch.kernels.meta"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from repro_torch.train.step import (build_decode_step,\n"
+            "    build_prefill_step, build_train_step)\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None"
             " and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

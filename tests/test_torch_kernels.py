@@ -11,6 +11,7 @@ import torch.utils.cpp_extension as cpp_ext
 
 from repro.kernels import ref
 from repro.kernels.ops import flash_attention_op, flash_decode_op
+from repro_torch.kernels import bucket_combine as BC
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
@@ -281,25 +282,38 @@ def test_flash_decode_plain_reads_the_cache_as_a_permuted_view():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_a_non_cpu_tensor_never_takes_the_plain_version():
-    """No fallback: only a CPU tensor reaches the plain version; any
-    other device goes to the kernel or raises."""
+def test_a_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
+    """No fallback: only a CPU tensor reaches the plain version. A
+    ``meta`` tensor (the dry-run's) takes the meta rule: empty outputs,
+    no plain computation and no launch counted."""
+    def plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+    for mod, name in ((FA, "attention_ref"), (FA, "attention_bwd_ref"),
+                      (FD, "decode_ref"), (MS, "mamba2_scan_plain"),
+                      (MK, "mlstm_chunkwise_plain"), (BC, "combine_ref")):
+        monkeypatch.setattr(mod, name, plain)
+    counts = [f.launches for f in (FA.flash_attention, FD.flash_decode,
+                                   MS.mamba2_scan, MK.mlstm_chunkwise,
+                                   BC.bucket_combine)]
     q = torch.empty((1, 9, 4, 64), device="meta")
     kv = torch.empty((1, 3, 4, 64), device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        FA.flash_attention(q, kv, kv)
-    with pytest.raises(ValueError, match="meta"):
-        FD.flash_decode(q[:, :, 0], kv, kv,
-                        torch.empty((1, 4), dtype=torch.int32,
-                                    device="meta"))
+    outs = [FA.flash_attention(q, kv, kv)]
+    outs.append(FD.flash_decode(q[:, :, 0], kv, kv,
+                                torch.empty((1, 4), dtype=torch.int32,
+                                            device="meta")))
     x = torch.empty((1, 2, 8, 16), device="meta")
     bc = torch.empty((1, 8, 16), device="meta")
     ad = torch.empty((1, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        MS.mamba2_scan(x, bc, bc, ad, ad)
+    outs.append(MS.mamba2_scan(x, bc, bc, ad, ad))
     qkv = torch.empty((1, 2, 8, 32), device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        MK.mlstm_chunkwise(qkv, qkv, qkv, ad, ad)
+    outs.append(MK.mlstm_chunkwise(qkv, qkv, qkv, ad, ad))
+    acc = torch.empty((2, 3, 8), device="meta")
+    outs.append(BC.bucket_combine(acc, acc, torch.empty(
+        (2,), dtype=torch.int32, device="meta")))
+    assert all(o.device.type == "meta" for o in outs)
+    assert counts == [f.launches for f in (
+        FA.flash_attention, FD.flash_decode, MS.mamba2_scan,
+        MK.mlstm_chunkwise, BC.bucket_combine)]
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

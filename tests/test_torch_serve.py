@@ -136,3 +136,26 @@ def test_launch_serve_cli_cpu(capsys):
     assert "served 5/5 requests" in out
     assert "phase-gated batch membership" in out
     assert isinstance(engine_mod.torch, types.ModuleType)
+
+
+def test_serve_decode_example_matches_reference_example(capsys):
+    """The port's ``examples/serve_decode`` serves what the reference's
+    ``examples/serve_decode.py`` serves: reduced qwen2.5-3b from the
+    reference example's own parameters, the same decode steps and the
+    same tokens for every request."""
+    import os
+    import runpy
+    from repro_torch.examples import serve_decode as example
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref = runpy.run_path(os.path.join(repo, "examples", "serve_decode.py"))
+    assert example.ARCH == "qwen2.5-3b" and ref["cfg"].name == example.ARCH
+    cfg = get_config(example.ARCH).reduced()
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                    ref["params"]),
+                             cfg, device="cpu")
+    reqs, steps = example.serve(get_api(cfg), params)
+    assert steps == ref["steps"]
+    assert all(r.done and len(r.out) == 10 for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in ref["reqs"]]
+    assert example.main(["--device", "cpu"]) == 0
+    assert "served 10 requests" in capsys.readouterr().out

@@ -47,6 +47,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.interop import (opt_state_from_jax, opt_state_to_numpy,
                                  params_from_jax, params_to_numpy)
 from repro_torch.kernels.bucket_combine import bucket_combine, combine_ref
+from repro_torch.kernels import bucket_combine as bc_mod
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import attention_bwd_ref
 from repro_torch.launch import train as launch_train
@@ -200,20 +201,32 @@ def test_adamw_trajectory_matches():
                               ref_params["blocks"]["ln1"])
 
 
-def test_training_kernels_never_take_the_plain_version_off_cpu():
-    """No fallback: a tensor that is not on the CPU goes to the kernel or
-    raises, through autograd too."""
+def test_training_kernels_never_take_the_plain_version_off_cpu(monkeypatch):
+    """No fallback: only a CPU tensor reaches the plain versions, through
+    autograd too. A ``meta`` tensor (the dry-run's) takes the kernels'
+    meta rules: empty outputs, no launch counted."""
+    def plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+    for mod, name in ((FA, "attention_ref"), (FA, "attention_bwd_ref"),
+                      (bc_mod, "combine_ref")):
+        monkeypatch.setattr(mod, name, plain)
+    counts = (FA.flash_attention.launches, FA.flash_attention_bwd.launches,
+              bucket_combine.launches)
     q = torch.empty((1, 9, 4, 64), device="meta")
     kv = torch.empty((1, 3, 4, 64), device="meta")
     lse = torch.empty((1, 9, 4), device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        FA.flash_attention_bwd(q, kv, kv, q, q, lse)
-    with pytest.raises(ValueError, match="meta"):
-        FA.flash_attention(q.requires_grad_(), kv, kv)
+    grads = FA.flash_attention_bwd(q, kv, kv, q, q, lse)
+    assert [g.shape for g in grads] == [q.shape, kv.shape, kv.shape]
+    qg = q.clone().requires_grad_()
+    FA.flash_attention(qg, kv, kv).sum().backward()
+    assert qg.grad.device.type == "meta"
     acc = torch.empty((2, 1, 128), device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        bucket_combine(acc, acc, torch.empty((2,), dtype=torch.int32,
-                                             device="meta"))
+    out = bucket_combine(acc, acc, torch.empty((2,), dtype=torch.int32,
+                                               device="meta"))
+    assert out.device.type == "meta" and out.shape == acc.shape
+    assert counts == (FA.flash_attention.launches,
+                      FA.flash_attention_bwd.launches,
+                      bucket_combine.launches)
 
 
 # ------------------------------------------------------ bucket combine
