@@ -4,9 +4,10 @@
     python3 chip_smoke.py --planted
 
 Phases, in order, except that the kernel parity and timing phases 2, 5,
-8, 13 and 21 run first and the families' phases 20 and 22-25 after
+8, 13, 30 and 21 run first and the families' phases 20 and 22-25 after
 phase 3 (after the training phases' profiles, torch.profiler loses most
-short sessions' records); any failure exits non-zero and no result is
+short sessions' records), 31 after 10, 32 after 12, 33 after 15 and 34
+after 17; any failure exits non-zero and no result is
 printed. ``--planted`` runs phase 1 and then only the check of phase 21
 against faults planted in the bf16 kernels' sources (``planted``):
 
@@ -88,8 +89,9 @@ against faults planted in the bf16 kernels' sources (``planted``):
    with 81 ``mamba2_scan`` and 27 ``flash_attention`` launches a forward
    exactly; then the cross-check at full depth in bf16 against
    ``CROSS_BF16_BOUND`` (PERF.md gives its reason), lengths [256, 141];
-12. hybrid serve: the same model through ``ServeEngine`` (batch 4,
-   window 256): 8 prompts of 4..200 tokens (recurrent bulk admission)
+12. hybrid serve: the same model cut to its first 9 layers (3 shared-
+   block applications; ``HYBRID_SERVE_LAYERS``) through ``ServeEngine``
+   (batch 4, window 256): 8 prompts of 4..200 tokens (recurrent bulk admission)
    plus one of 300 (the sequential path), 16 new tokens each; every
    request drained with in-vocabulary tokens, 8 recurrent and 1
    sequential admissions, ``flash_decode`` launched; a profiled decode
@@ -229,13 +231,47 @@ against faults planted in the bf16 kernels' sources (``planted``):
    f32) on the card against the CPU (scale 1e-7 relative, q equal off
    the .5 rounding ties, residual 1e-6), timed; and ``python -m
    repro_torch.obs.regress`` over the committed ``BENCH_*.json`` must
-   exit 0.
+   exit 0;
+30. recurrent backward parity: ``mamba2_scan_bwd`` and
+   ``mlstm_chunkwise_bwd`` against their plain backwards on the card
+   (seeded inputs in the models' strided layouts, a random cotangent):
+   the scan at P, N over 16, 32 and 64, a ragged S, S < 64 and the train
+   shape B=2, NH=112, S=2048, P=N=64; the mLSTM at hd 32, 64 and 384, a
+   ragged S, S < 64 and B=8, NH=4, S=2048, hd 384; f32 and bf16 inputs,
+   each gradient within ``BWD_TOL`` (1e-3 f32, 2e-2 bf16) of its largest
+   |value|; two runs at the train shapes bitwise equal; both timed
+   beside their plain backwards (no PyTorch call computes either), with
+   ptxas' registers and spills;
+31. hybrid train reference: reduced zamba2 in f32 (S = 100), loss and
+   every gradient leaf through the kernels on the card against the
+   plain versions on the CPU (1e-4 of each leaf's largest value), and a
+   team-2 ``GradSyncProgram`` step's loss and ``grad_norm`` (1e-4
+   relative); 33. the same for reduced xlstm-125m;
+32. hybrid train: ``python -m repro_torch.launch.train --arch zamba2-7b
+   --layers 6 --workers 2 --elastic "join@2,leave@4" --steps 6 --batch
+   2 --seq 4096`` in this process (full width, 6 of 81 layers, bf16):
+   every loss finite, each step's launches of ``mamba2_scan`` and
+   ``mamba2_scan_bwd`` (6 a rank's forward and backward) and of both
+   attention kernels (2) equal to the team's ranks times those (one rank
+   on the team-3 epoch's plain step: 2 does not divide 3), and
+   ``bucket_combine`` launched exactly on the program's steps; median
+   step seconds per team, peak ``torch.cuda.max_memory_allocated``, a
+   profiled extra step's busy share and the port's kernels' time
+   (``hybrid_train_profile.txt``);
+34. xlstm train: the same for xlstm-125m at full width and depth (9
+   ``mlstm_chunkwise`` and ``mlstm_chunkwise_bwd`` launches a rank),
+   ``--batch 4 --seq 1024``, one rank's forward and backward profiled
+   on the device's kernels only (``xlstm_train_profile.txt``), then one
+   mLSTM and one sLSTM
+   block's forward and backward timed alone (the sLSTM's share).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(the counterparts of all five TPU kernels and the attention backward,
+(the counterparts of all five TPU kernels, the attention backward and
+the two recurrent backwards,
 plus the attention kernels' rows at hd 112 and at the families' shapes;
-``launches`` sums the serve, train, hybrid prefill, hybrid serve, xlstm
-prefill, xlstm serve, pipeline, multihost (the in-process run and the
+``launches`` sums the serve, train, hybrid prefill, hybrid serve, hybrid
+train, xlstm prefill, xlstm serve, xlstm train, pipeline, multihost (the
+in-process run and the
 socket survivors' own counts), mixtral serve, whisper, llava, config
 sweep and dry-run check runs, split in ``launches_by_path``), prefill, decode and
 training rates, the whole run's time, and as the last line
@@ -731,7 +767,10 @@ PORT_KERNELS = {"attention": ("attn_kernel", "fa_fwd_wgmma", "bwd_dot",
                               "bwd_dkdv", "bwd_dq", "fa_dkdv_wgmma",
                               "fa_dq_wgmma") + DECODE,
                 "ssd scan": ("ssd_kernel",) + SCAN_BF16,
-                "mlstm": ("mlstm_kernel",) + MLSTM_BF16}
+                "mlstm": ("mlstm_kernel",) + MLSTM_BF16,
+                "ssd scan bwd": ("ssd_bwd_kernel", "ssd_bwd_reduce"),
+                "mlstm bwd": ("mlstm_delta", "mlstm_bwd_kernel",
+                              "mlstm_bwd_reduce")}
 
 
 def profile_work(work: dict, fname: str) -> None:
@@ -1134,9 +1173,22 @@ def phase_train() -> dict:
     return launches
 
 
-def phase_train_profile(loop, params, opt_state) -> None:
+def _kernel_groups(by_name: dict) -> str:
+    """The port's kernels' device ms by group, from ``{kernel: ms}``."""
+    groups = {g: sum(v for k, v in by_name.items()
+                     if any(m in k for m in names))
+              for g, names in PORT_KERNELS.items()}
+    groups["of which attention bwd"] = sum(
+        v for k, v in by_name.items()
+        if any(m in k for m in ATTN_BWD_BF16 + ("bwd_dkdv", "bwd_dq")))
+    return ", ".join(f"{g} {v:.3f} ms" for g, v in groups.items() if v)
+
+
+def phase_train_profile(loop, params, opt_state, label: str = "train",
+                        fname: str = "train_profile.txt") -> None:
     """One more step of the last epoch's program under torch.profiler:
-    device busy against host wall, split into the step's three ranges."""
+    device busy against host wall, split into the step's three ranges
+    (the table in ``chiprun_out/<fname>``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1175,21 +1227,22 @@ def phase_train_profile(loop, params, opt_state) -> None:
     for k, ms in kernels:
         by_name[k] = by_name.get(k, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    attn = sum(v for k, v in by_name.items()
-               if any(m in k for m in PORT_KERNELS["attention"]))
+    groups = {g: sum(v for k, v in by_name.items()
+                     if any(m in k for m in names))
+              for g, names in PORT_KERNELS.items()}
+    groups = _kernel_groups(by_name)
     parts = "; ".join(f"{k[len(RANGE_PREFIX):]} host "
                       f"{v.get('host_ms', float('nan')):.3f} ms device "
                       f"{v.get('device_ms', float('nan')):.3f} ms"
                       for k, v in sorted(spans.items()))
-    print(f"profile train step (team {n}, {tuple(batch['tokens'].shape)} "
+    print(f"profile {label} step (team {n}, {tuple(batch['tokens'].shape)} "
           f"tokens): host wall "
           f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / (1e3 * wall):.1f}%); attention kernels "
-          f"{attn:.3f} ms; {parts}; top: "
+          f"({100 * busy / (1e3 * wall):.1f}%); the port's kernels: "
+          f"{groups}; {parts}; top: "
           + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
-    with open(os.path.join(HERE, "chiprun_out", "train_profile.txt"),
-              "w") as f:
-        f.write(f"== train step, team {n}: wall {1e3 * wall:.4f} ms, busy "
+    with open(os.path.join(HERE, "chiprun_out", fname), "w") as f:
+        f.write(f"== {label} step, team {n}: wall {1e3 * wall:.4f} ms, busy "
                 f"{busy:.4f} ms\n{json.dumps(spans, indent=1)}\n"
                 + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top) + "\n")
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -1511,19 +1564,36 @@ def phase_hybrid_prefill():
     return api, params, launches
 
 
+# the hybrid serve phase's depth: its admission and decode are host-bound
+# decode passes (4.2 prompt tok/s admitted at full depth, 133.7 s of a
+# 1142.5 s run on a slow host), so it serves the prefill's model cut to
+# its first 3 groups (9 Mamba2 layers, 3 shared-block applications)
+HYBRID_SERVE_LAYERS = 9
+
+
 def phase_hybrid_serve(api, params) -> dict:
-    """zamba2-7b at full width through ServeEngine: batch 4, window 256,
-    8 prompts of 4..200 tokens (recurrent bulk admission in several
-    length and group buckets, slot reuse) plus one of 300 (past the
-    window: the sequential path and its fresh-slot reset), 16 new tokens
-    each."""
+    """zamba2-7b at full width, its first ``HYBRID_SERVE_LAYERS`` layers,
+    through ServeEngine: batch 4, window 256, 8 prompts of 4..200 tokens
+    (recurrent bulk admission in several length and group buckets, slot
+    reuse) plus one of 300 (past the window: the sequential path and its
+    fresh-slot reset), 16 new tokens each. The profiled prefill runs at
+    full depth."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.models.registry import get_api
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.utils import tree_map
 
+    full_api, full_params = api, params
+    groups = HYBRID_SERVE_LAYERS // api.cfg.hybrid_attn_every
+    api = get_api(dataclasses.replace(api.cfg,
+                                      n_layers=HYBRID_SERVE_LAYERS))
+    params = {**params, "blocks": tree_map(lambda t: t[:groups],
+                                           params["blocks"])}
     cfg = api.cfg
     eng = ServeEngine(api, params, batch=4, window=256)
     rng = np.random.default_rng(0)
@@ -1571,7 +1641,8 @@ def phase_hybrid_serve(api, params) -> dict:
     decoded = sum(len(r.out) - 1 for r in reqs)
     rec_toks = sum(n for n in lengths if n <= 256)
     seq_toks = sum(lengths) - rec_toks
-    print(f"hybrid serve: {HYBRID} full width bf16, batch 4, window 256: "
+    print(f"hybrid serve: {HYBRID} full width bf16, {cfg.n_layers} of "
+          f"{full_api.cfg.n_layers} layers, batch 4, window 256: "
           f"{len(reqs)} requests (prompts {lengths}, {sum(lengths)} prompt "
           f"tokens, {sum(len(r.out) for r in reqs)} generated) in "
           f"{wall:.3f} s: recurrent bulk admission {spent['rec']:.3f} s "
@@ -1591,8 +1662,8 @@ def phase_hybrid_serve(api, params) -> dict:
     profile_work({
         "hybrid decode step": (3, lambda: api.decode_fn(
             params, eng.state, {"token": tok, "t": t})),
-        "hybrid prefill 2x2048": (1, lambda: api.prefill_fn(
-            params, {"tokens": prompt})),
+        "hybrid prefill 2x2048": (1, lambda: full_api.prefill_fn(
+            full_params, {"tokens": prompt})),
     }, "hybrid_profile.txt")
     return launches
 
@@ -1960,6 +2031,436 @@ def phase_xlstm_serve(api, params) -> dict:
         "xlstm prefill 8x512": (1, lambda: api.prefill_fn(
             params, {"tokens": prompt})),
     }, "xlstm_profile.txt")
+    return launches
+
+
+# ------------------------------------------- recurrent training phases
+# each gradient of a backward kernel against the plain backward, within
+# this share of the gradient's largest |value|, by the inputs' dtype
+# (f32: the scan forward's bound, SCAN_TOL)
+BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# the CUDA functions each backward call launches once
+SCAN_BWD = PORT_KERNELS["ssd scan bwd"]
+MLSTM_BWD = PORT_KERNELS["mlstm bwd"]
+
+
+def _bwd_err(got, want, dtype, what: str) -> float:
+    """The largest of each gradient's error over its largest |value|;
+    fails past ``BWD_TOL`` or on a non-finite value."""
+    import torch
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"{what}: gradient {i} not finite")
+        e = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, e)
+    if not worst <= BWD_TOL[dtype]:
+        fail(f"{what}: a gradient {worst:.3e} of its largest value from the "
+             f"plain backward's (limit {BWD_TOL[dtype]})")
+    return worst
+
+
+def _bwd_row(name, source, replaces, shape, err, fn, plain, kernels,
+             nbytes, flops, peak, func):
+    ms, host = time_ms(fn, kernels=kernels)
+    plain_ms, _ = time_ms(plain, iters=3)
+    t_ops, t_bytes = flops / PEAK_FLOPS[peak], nbytes / PEAK_BYTES
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "shape": shape, "max_abs_err": err,
+            "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "ptxas": ptxas_regs(
+                os.path.splitext(os.path.basename(source))[0], func)}
+
+
+def phase_recurrent_bwd_parity():
+    """The two backward kernels against their plain backwards on the card,
+    from seeded inputs in the models' strided layouts and a random
+    cotangent: ``mamba2_scan_bwd`` at P, N over every value of ``DIMS``, a
+    ragged S, S < 64 and the train shape (B=2, NH=112, S=2048, P=N=64);
+    ``mlstm_chunkwise_bwd`` at hd 32, 64, 384, a ragged S, S < 64 and the
+    train shape (B=8, NH=4, S=2048, hd=384); f32 and bf16 inputs, each
+    gradient within ``BWD_TOL`` of its largest |value|; two runs at the
+    train shapes bitwise equal. Then both timed beside their plain
+    backwards (no PyTorch call computes either: library null); returns
+    the two rows (max_abs_err: the worst relative reading in bf16)."""
+    import torch
+    from repro_torch.kernels import meta
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.kernels import mlstm_kernel as MK
+
+    gen = torch.Generator("cuda").manual_seed(22)
+    worst = {"scan": 0.0, "mlstm": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for B, NH, S, P, N in ((2, 112, 2048, 64, 64), (2, 4, 1000, 16, 32),
+                               (1, 4, 40, 32, 64), (2, 3, 300, 64, 16)):
+            ins = _scan_inputs(gen, B, NH, S, dtype, P=P, N=N)
+            dy = torch.randn((B, NH, S, P), generator=gen, device="cuda")
+            got = MS.mamba2_scan_bwd(*ins, dy)
+            e = _bwd_err(got, MS.mamba2_scan_bwd_plain(*ins, dy), name,
+                         f"mamba2_scan_bwd {name} B={B} NH={NH} S={S} P={P} "
+                         f"N={N}")
+            print(f"parity mamba2_scan_bwd {name} x, B={B} NH={NH} S={S} "
+                  f"P={P} N={N}: worst gradient error {e:.3e} of its "
+                  f"largest value")
+            if dtype == torch.bfloat16:
+                worst["scan"] = max(worst["scan"], e)
+            if S == 2048 and not all(torch.equal(a, b) for a, b in zip(
+                    got, MS.mamba2_scan_bwd(*ins, dy))):
+                fail(f"mamba2_scan_bwd {name}: two runs differ")
+            del ins, dy, got
+        for B, NH, S, hd in ((8, 4, 2048, 384), (2, 4, 1000, 384),
+                             (2, 4, 40, 64), (2, 2, 300, 32)):
+            ins = _mlstm_inputs(gen, B, NH, S, hd, dtype)
+            y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+            dy = torch.randn((B, NH, S, hd), generator=gen, device="cuda")
+            got = MK.mlstm_chunkwise_bwd(*ins, y, dy)
+            e = _bwd_err(got, MK.mlstm_chunkwise_bwd_plain(*ins, dy), name,
+                         f"mlstm_chunkwise_bwd {name} B={B} NH={NH} S={S} "
+                         f"hd={hd}")
+            print(f"parity mlstm_chunkwise_bwd {name} q/k/v, B={B} NH={NH} "
+                  f"S={S} hd={hd}: worst gradient error {e:.3e} of its "
+                  f"largest value")
+            if dtype == torch.bfloat16:
+                worst["mlstm"] = max(worst["mlstm"], e)
+            if S == 2048 and not all(torch.equal(a, b) for a, b in zip(
+                    got, MK.mlstm_chunkwise_bwd(*ins, y, dy))):
+                fail(f"mlstm_chunkwise_bwd {name}: two runs differ")
+            del ins, y, dy, got
+    torch.cuda.empty_cache()
+    print("parity: both backward kernels bitwise repeatable at the train "
+          "shapes")
+
+    rows = []
+    B, NH, S, P, N = 2, 112, 2048, 64, 64
+    ins = _scan_inputs(gen, B, NH, S, torch.bfloat16)
+    dy = torch.randn((B, NH, S, P), generator=gen, device="cuda")
+    grads = MS.mamba2_scan_bwd(*ins, dy)
+    rows.append(_bwd_row(
+        "mamba2_scan_bwd", "src/repro_torch/csrc/mamba2_scan_bwd.cu",
+        "src/repro/kernels/mamba2_scan.py:64 (backward; the reference "
+        "differentiates src/repro/models/ssm.py:128)",
+        f"B={B} NH={NH} S={S} P={P} N={N}, x bf16, dy f32", worst["scan"],
+        lambda: MS.mamba2_scan_bwd(*ins, dy),
+        lambda: MS.mamba2_scan_bwd_plain(*ins, dy), SCAN_BWD,
+        meta.nbytes(*ins, dy, *grads), MS.scan_bwd_flops(B, NH, S, P, N),
+        "bfloat16", r"ssd_bwd_kernelI13__nv_bfloat16Li64ELi64E"))
+    del ins, dy, grads
+    B, NH, S, hd = 8, 4, 2048, 384
+    ins = _mlstm_inputs(gen, B, NH, S, hd, torch.bfloat16)
+    y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+    dy = torch.randn((B, NH, S, hd), generator=gen, device="cuda")
+    nbytes, flops = MK.mlstm_bwd_cost(B, NH, S, hd, 2, 4)
+    rows.append(_bwd_row(
+        "mlstm_chunkwise_bwd", "src/repro_torch/csrc/mlstm_chunkwise_bwd.cu",
+        "src/repro/kernels/mlstm_kernel.py:77 (backward; the reference "
+        "differentiates src/repro/models/xlstm.py:117)",
+        f"B={B} NH={NH} S={S} hd={hd}, q/k/v bf16, y/dy f32",
+        worst["mlstm"], lambda: MK.mlstm_chunkwise_bwd(*ins, y, dy),
+        lambda: MK.mlstm_chunkwise_bwd_plain(*ins, dy), MLSTM_BWD,
+        nbytes, flops, "bfloat16", r"mlstm_bwd_kernelI13__nv_bfloat16Li384E"))
+    del ins, y, dy
+    torch.cuda.empty_cache()
+    for r in rows:
+        print_timing(r)
+        print(f"ptxas {r['name']}: {r['ptxas']}")
+    return rows
+
+
+def _recurrent_train_reference(arch: str, bwd, fwd) -> None:
+    """Reduced ``arch`` in f32: one ``value_and_grad`` and one
+    ``GradSyncProgram`` step (team 2, phaser_scsl) through the kernels on
+    the card and through the plain versions on the CPU, from the same
+    parameters and batch (S = 100: a ragged tail of the kernels' 64-row
+    chunks): the loss and every gradient leaf within 1e-4 of the leaf's
+    largest value, the step's loss and ``grad_norm`` within 1e-4
+    relative (``phase_train_reference``'s bounds), and the forward and
+    backward kernels launched on the card. The updated parameters'
+    largest difference is printed, not bounded: Adam's first step
+    divides each gradient by its own magnitude, so a gradient near 0
+    moves its parameter by up to lr on rounding alone."""
+    import torch
+    from repro_torch.collective_exec import build_gradsync_program
+    from repro_torch.core.collective import PhaserCollective
+    from repro_torch.data import make_batch
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.optim import AdamW
+    from repro_torch.utils import tree_flatten
+
+    cfg = get_config(arch).reduced()
+    api = get_api(cfg)
+    opt = AdamW(lr=1e-3, warmup=2, total_steps=10)
+    params = api.init_params(torch.Generator("cpu").manual_seed(0), "cpu")
+    batch = make_batch(cfg.vocab_size, 4, 100, seed=0, step=0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        b = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        n = (fwd.launches, bwd.launches)
+        (loss, _), grads = api.value_and_grad(p, b)
+        prog = build_gradsync_program(
+            api, opt, PhaserCollective(2, "data", kind="phaser_scsl",
+                                       seed=0), device=dev)
+        newp, _, pm = prog.step(p, opt.init(p), b,
+                                torch.ones((2,), device=dev))
+        if dev == "cuda" and not (fwd.launches > n[0] and bwd.launches > n[1]):
+            fail(f"{arch} train reference: the kernels were not launched")
+        m = prog.reduce_metrics(pm)
+        res[dev] = (loss.item(), tree_flatten(grads)[1],
+                    tree_flatten(newp)[1], m["loss"].item(),
+                    m["grad_norm"].item())
+    card, cpu = res["cuda"], res["cpu"]
+    e_loss = max(abs(card[0] - cpu[0]), abs(card[3] - cpu[3]))
+    e_norm = abs(card[4] - cpu[4]) / cpu[4]
+    e_grad = max((a.cpu() - w).abs().max().item()
+                 / max(w.abs().max().item(), 1e-30)
+                 for a, w in zip(card[1], cpu[1]))
+    e_par = max((a.cpu() - w).abs().max().item()
+                for a, w in zip(card[2], cpu[2]))
+    print(f"{arch} train reference: reduced f32, S=100, card vs CPU plain: "
+          f"loss {card[0]:.6f} vs {cpu[0]:.6f} (err {e_loss:.3e}), gradient "
+          f"leaves' worst error {e_grad:.3e} of their largest value; the "
+          f"team-2 step's grad_norm rel err {e_norm:.3e}, its params "
+          f"max_abs_err {e_par:.3e}")
+    if not (e_loss <= 1e-4 and e_grad <= 1e-4 and e_norm <= 1e-4):
+        fail(f"{arch} train reference: card and CPU disagree (loss "
+             f"{e_loss}, grads {e_grad}, grad_norm {e_norm})")
+
+
+def phase_hybrid_train_reference() -> None:
+    from repro_torch.kernels import mamba2_scan as MS
+    _recurrent_train_reference(HYBRID, MS.mamba2_scan_bwd, MS.mamba2_scan)
+
+
+def phase_xlstm_train_reference() -> None:
+    from repro_torch.kernels import mlstm_kernel as MK
+    _recurrent_train_reference(XLSTM, MK.mlstm_chunkwise_bwd,
+                               MK.mlstm_chunkwise)
+
+
+def _train_counters() -> dict:
+    from repro_torch.kernels import bucket_combine as BC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba2_scan as MS
+    from repro_torch.kernels import mlstm_kernel as MK
+    return {"mamba2_scan": MS.mamba2_scan, "mamba2_scan_bwd":
+            MS.mamba2_scan_bwd, "mlstm_chunkwise": MK.mlstm_chunkwise,
+            "mlstm_chunkwise_bwd": MK.mlstm_chunkwise_bwd,
+            "flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "bucket_combine": BC.bucket_combine}
+
+
+def _drive_train_cli(argv, label: str):
+    """``repro_torch.launch.train.main(argv)`` in this process, every
+    kernel counter zeroed just before; the loop's every step logged, the
+    counters read after each step. Returns (per-step metrics, per-step
+    launches, final (params, opt_state), the loop, peak bytes, wall s)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import train as LT
+    from repro_torch.train.loop import TrainLoop
+
+    fns = _train_counters()
+    seen = {"counts": []}
+    orig = TrainLoop.run
+
+    def run(self, steps, **kw):
+        self.log_every = 1
+        seen["loop"] = self
+
+        def on_step(step, params, metrics):
+            seen["counts"].append({k: f.launches for k, f in fns.items()})
+        seen["state"] = orig(self, steps, on_step=on_step, **kw)
+        return seen["state"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in fns.values():
+        f.launches = 0
+    buf = io.StringIO()
+    TrainLoop.run = run
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = LT.main(argv)
+    finally:
+        TrainLoop.run = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = buf.getvalue()
+    print("\n".join(f"{label} cli: {l}" for l in out.splitlines()
+                    if not l.startswith('{"loss"')))
+    if rc not in (0, 1):
+        fail(f"{label}: python -m repro_torch.launch.train exited {rc}")
+    loop = seen["loop"]
+    prev = {k: 0 for k in fns}
+    per_step = []
+    for c in seen["counts"]:
+        per_step.append({k: c[k] - prev[k] for k in fns})
+        prev = c
+    return loop.metrics_log, per_step, seen["state"], loop, peak, wall
+
+
+def _train_phase(label, argv, layers: dict, whole_step: bool = True):
+    """One §4 run: every loss finite, every step's launches of each kernel
+    equal to the team times the layers that call it, each kernel of the
+    path launched; seconds a step, peak memory, a profiled extra step's
+    busy share. ``layers``: {kernel: calls a rank's forward or backward
+    makes}. Returns the launches."""
+    import statistics
+    import torch
+    metrics, per_step, (params, opt_state), loop, peak, wall = \
+        _drive_train_cli(argv, label)
+    steps = len(per_step)
+    if len(metrics) != steps or not all(math.isfinite(m["loss"])
+                                        for m in metrics):
+        fail(f"{label}: losses not all finite: "
+             f"{[m['loss'] for m in metrics]}")
+    for m, c in zip(metrics, per_step):
+        n = int(m["team"])
+        # the engine's program runs every rank's forward and backward and
+        # syncs through bucket_combine; where the team does not divide
+        # the batch the loop takes the plain step, one of each
+        prog = "bucket_groups" in m
+        want = {k: (n if prog else 1) * v for k, v in layers.items()}
+        got = {k: c[k] for k in layers}
+        print(f"{label}: step {m['step']} team {n} "
+              f"({'program' if prog else 'plain step'}) loss "
+              f"{m['loss']:.4f} {m['dt']:.3f} s; launches {got} (want "
+              f"{want}), bucket_combine {c['bucket_combine']}")
+        if got != want or (c["bucket_combine"] > 0) != prog:
+            fail(f"{label}: step {m['step']} launched {c}, want {want}")
+    teams = sorted({int(m["team"]) for m in metrics})
+    for n in teams:
+        dts = [m["dt"] for m in metrics[1:] if int(m["team"]) == n]
+        if dts:
+            print(f"{label}: team {n}: median step {statistics.median(dts):.4f}"
+                  f" s over {len(dts)} steps (after the first)")
+    print(f"{label}: {steps} steps in {wall:.3f} s (the CLI, model init "
+          f"and program builds included); epochs "
+          f"{[len(e['live']) for e in loop.epoch_log]}; peak memory "
+          f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    totals = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    if whole_step:
+        phase_train_profile(loop, params, opt_state, label=label,
+                            fname=f"{label}_profile.txt")
+    else:
+        _profile_rank_grads(loop, params, label, f"{label}_profile.txt")
+    del params, opt_state, loop
+    return totals
+
+
+def _profile_rank_grads(loop, params, label: str, fname: str) -> None:
+    """One team-2 rank's forward and backward (its half of the next
+    batch) under torch.profiler, the device's kernels only: busy against
+    host wall and the port's kernels. For a step of hundreds of thousands
+    of small ops (the sLSTM's autograd time loop), where recording the
+    host's ops and the whole step took minutes to process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: torch.tensor(v[:len(v) // 2], device="cuda")
+             for k, v in next(loop.data).items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.api.value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for k, ms in cuda_kernels(prof):
+        by_name[k] = by_name.get(k, 0.0) + ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    print(f"profile {label}: one rank's forward and backward "
+          f"({tuple(batch['tokens'].shape)} tokens): host wall "
+          f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / (1e3 * wall):.1f}%); the port's kernels: "
+          f"{_kernel_groups(by_name)}; top: "
+          + "; ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    with open(os.path.join(HERE, "chiprun_out", fname), "w") as f:
+        f.write(f"== {label}, one rank's forward and backward: wall "
+                f"{1e3 * wall:.4f} ms, busy {busy:.4f} ms\n"
+                + "\n".join(f"{v:10.4f} ms  {k}" for k, v in top) + "\n")
+
+
+HYBRID_TRAIN_LAYERS = 6     # 2 shared-block applications (every 3rd)
+TRAIN_CHURN_RECURRENT = "join@2,leave@4"      # 2 -> 3 -> 2
+
+
+def phase_hybrid_train() -> dict:
+    """zamba2-7b at full width, 6 of 81 layers (AdamW's f32 moments at
+    full depth are 54 GB), bf16, random weights from the loop's seeded
+    generator, through ``python -m repro_torch.launch.train``: 2 workers,
+    churn 2 -> 3 -> 2, 6 steps of 2 x 4096 tokens (train_4k's length).
+    The team-2 epochs run the engine's program and ``bucket_combine``;
+    2 does not divide 3, so the team-3 epoch takes the plain step. (At a
+    batch of 6, which both teams divide, the team-3 sync ran out of the
+    card's memory: the cached team-2 program keeps its 7.2 GB f32 bucket
+    buffer beside team 3's 10.8 GB and the schedule's copies of it.)"""
+    S = 4096
+    argv = ["--arch", HYBRID, "--layers", str(HYBRID_TRAIN_LAYERS),
+            "--workers", "2", "--elastic", TRAIN_CHURN_RECURRENT,
+            "--steps", "6", "--batch", "2", "--seq", str(S)]
+    print(f"hybrid train: python -m repro_torch.launch.train "
+          f"{' '.join(argv)} (depth cut to {HYBRID_TRAIN_LAYERS} of 81)")
+    apps = HYBRID_TRAIN_LAYERS // 3
+    return _train_phase("hybrid_train", argv, {
+        "mamba2_scan": HYBRID_TRAIN_LAYERS,
+        "mamba2_scan_bwd": HYBRID_TRAIN_LAYERS,
+        "flash_attention": apps, "flash_attention_bwd": apps})
+
+
+def phase_xlstm_train() -> dict:
+    """xlstm-125m at full width and depth (9 mLSTM and 3 sLSTM layers),
+    bf16, through ``python -m repro_torch.launch.train``: 2 workers, churn
+    2 -> 3 -> 2, 6 steps of 4 x 1024 tokens (the team-2 epochs run the
+    program, the team-3 one the plain step); one rank's forward and
+    backward profiled, the device's kernels only. Then one mLSTM and one
+    sLSTM block's
+    forward and backward timed alone at a team-2 rank's shape (the sLSTM
+    stays autograd through its time loop)."""
+    import torch
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.registry import get_api, get_config
+
+    S, B = 1024, 4
+    argv = ["--arch", XLSTM, "--workers", "2", "--elastic",
+            TRAIN_CHURN_RECURRENT, "--steps", "6", "--batch", str(B),
+            "--seq", str(S)]
+    print(f"xlstm train: python -m repro_torch.launch.train {' '.join(argv)}")
+    launches = _train_phase("xlstm_train", argv, {
+        "mlstm_chunkwise": 9, "mlstm_chunkwise_bwd": 9}, whole_step=False)
+    cfg = get_config(XLSTM)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator("cuda").manual_seed(0), "cuda")
+    blocks = params["blocks"]
+    pm = {n: t[0, 0].detach().requires_grad_(True)
+          for n, t in blocks["mlstm"].items()}
+    ps = {n: t[0].detach().requires_grad_(True)
+          for n, t in blocks["slstm"].items()}
+    u = torch.randn((B // 2, S, cfg.d_model), generator=torch.Generator(
+        "cuda").manual_seed(1), device="cuda").to(pm["up"].dtype)
+    u.requires_grad_(True)
+    for name, fn in (("mLSTM", lambda: XL.mlstm_apply(
+            pm, u, n_heads=cfg.n_heads)), ("sLSTM", lambda: XL.slstm_apply(
+            ps, u, n_heads=cfg.n_heads))):
+        def step():
+            fn().float().sum().backward()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        print(f"xlstm train: one {name} block's forward and backward at "
+              f"{B // 2}x{S} (a rank's shape at team 2): "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms host wall")
+    del params, blocks, pm, ps, u
     return launches
 
 
@@ -3516,6 +4017,7 @@ def main() -> int:
     # before the training phases: after their profiles torch.profiler
     # loses most short sessions' records (PERF.md section 7)
     rows += phase_xlstm_parity()
+    rows += phase_recurrent_bwd_parity()
     rows += phase_families_parity()
     phase_reference()
     # the families' profiles too run before the training phases'
@@ -3526,6 +4028,7 @@ def main() -> int:
     phase_train_reference()
     phase_hybrid_reference()
     phase_hybrid_cross_f32()
+    phase_hybrid_train_reference()
     by_path = {"serve": phase_serve()}
     import gc
     gc.collect()
@@ -3538,11 +4041,18 @@ def main() -> int:
     del api, params
     gc.collect()
     torch.cuda.empty_cache()
+    by_path["hybrid_train"] = phase_hybrid_train()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_xlstm_reference()
     phase_xlstm_cross_f32()
+    phase_xlstm_train_reference()
     api, params, by_path["xlstm_prefill"] = phase_xlstm_prefill()
     by_path["xlstm_serve"] = phase_xlstm_serve(api, params)
     del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["xlstm_train"] = phase_xlstm_train()
     gc.collect()
     torch.cuda.empty_cache()
     phase_pipeline_reference()

@@ -125,10 +125,11 @@ def run(fn, args, in_placements, out_placements, in_grad_placements=None):
                      redistribute_inputs=True, **kw)(*args)
 
 
-def partial_over(pl):
+def partial_over(pl, keep=()):
     """Placements of a replicated operand's gradient when the other
     operand is sharded by ``pl``: partial on every mesh dim ``pl``
-    shards."""
+    shards, except that a ``Shard`` of a dim in ``keep`` (one the
+    operand shares, sharded alike) stays."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    return tuple(Partial() if isinstance(p, Shard) else Replicate()
-                 for p in pl)
+    return tuple((p if p.dim in keep else Partial())
+                 if isinstance(p, Shard) else Replicate() for p in pl)

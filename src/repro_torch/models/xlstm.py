@@ -36,6 +36,17 @@ def _rmsnorm_f32(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y * torch.rsqrt(var + 1e-5) * w.float()
 
 
+def _logsigmoid(t: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on the dry-run's DTensors per rank on the shards
+    (``local_map``: DTensor has no rule for its backward)."""
+    if type(t) is torch.Tensor:
+        return F.logsigmoid(t)
+    from ..kernels import meta
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return meta.run(F.logsigmoid, (t,), (pl,), pl)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -103,7 +114,7 @@ def _mlstm_in(p: Dict, u: torch.Tensor, n_heads: int):
     k = k / math.sqrt(hd)
     hf = h.float()
     logi = hf @ p["wi"]
-    logf = F.logsigmoid(hf @ p["wf"] + p["fb"])
+    logf = _logsigmoid(hf @ p["wf"] + p["fb"])
     return q, k, v, logi, logf, z
 
 
@@ -214,6 +225,42 @@ def _slstm_cell(g_x: torch.Tensor, wr: torch.Tensor, c, n, m, h):
     return c_new, n_new, m_new, h_new
 
 
+class _SlstmScanMeta(torch.autograd.Function):
+    """The sLSTM time loop's closed form on ``meta`` tensors, forward and
+    backward. The forward records the recurrent product h wr of every
+    step (the counted FLOPs of the loop's ops), its gates read and its
+    state read and written, and keeps what the loop's autograd graph
+    would hold until the backward where a gradient is needed (about 16
+    hd f32 a row and step: the gate pre-activations, the state and the
+    cell's intermediates); the backward records twice the forward's
+    products (dh wrᵀ and hᵀ dg a step) and returns empty gradients."""
+
+    @staticmethod
+    def forward(ctx, gx, wr):
+        from ..kernels import meta
+        B, S, NH, hd4 = gx.shape
+        hs = torch.empty((S, B, NH, hd4 // 4), device="meta")  # the steps'
+        y = torch.empty((B, S, NH, hd4 // 4), device="meta")   # h, stacked
+        del hs
+        meta.record("slstm_scan", 2 * S * B * NH * (hd4 // 4) * hd4,
+                    meta.nbytes(gx, wr, y) + 8 * meta.nbytes(y))
+        ctx.held = (torch.empty((S, B, NH, 4 * hd4), device="meta")
+                    if any(ctx.needs_input_grad) else None)
+        ctx.shapes = (gx.shape, wr.shape)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ..kernels import meta
+        (B, S, NH, hd4), wshape = ctx.shapes
+        dgx = torch.empty((B, S, NH, hd4), device="meta")
+        dwr = torch.empty(wshape, device="meta")
+        meta.record("slstm_scan_bwd", 4 * S * B * NH * (hd4 // 4) * hd4,
+                    meta.nbytes(ctx.held, dy, dgx, dwr))
+        ctx.held = None
+        return dgx, dwr
+
+
 def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
     """The sLSTM's time loop. gx: (B,S,NH,4hd) f32 -> h (B,S,NH,hd). On
     ``meta`` tensors (the dry-run's) a closed form stands in for the
@@ -221,15 +268,7 @@ def _slstm_scan(gx: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
     thousands of traced steps would dominate the trace."""
     B, S, NH, hd4 = gx.shape
     if gx.device.type == "meta":
-        from ..kernels import meta
-        hs = torch.empty((S, B, NH, hd4 // 4), device="meta")  # the steps'
-        y = torch.empty((B, S, NH, hd4 // 4), device="meta")   # h, stacked
-        del hs
-        # the recurrent product h wr of every step (the counted FLOPs of
-        # the loop's ops), its gates read and its state read and written
-        meta.record("slstm_scan", 2 * S * B * NH * (hd4 // 4) * hd4,
-                    meta.nbytes(gx, wr, y) + 8 * meta.nbytes(y))
-        return y
+        return _SlstmScanMeta.apply(gx, wr)
     c = torch.zeros((B, NH, hd4 // 4), dtype=torch.float32,
                     device=gx.device)
     n, h = c, c
@@ -253,8 +292,10 @@ def slstm_apply(p: Dict, u: torch.Tensor, *, n_heads: int) -> torch.Tensor:
     else:
         from ..kernels import meta
         pl = meta.placements(gx, {0: B})
+        # wr is replicated: its gradient from the batch shards is partial
         y = meta.run(_slstm_scan, (gx, wr),
-                     (pl, meta.restrict(pl, ())), pl)
+                     (pl, meta.restrict(pl, ())), pl,
+                     in_grad_placements=(pl, meta.partial_over(pl)))
     return _rmsnorm_f32(y.reshape(B, S, D), p["norm_w"]).to(u.dtype) \
         @ p["down"]
 

@@ -39,6 +39,8 @@ step's parameters 1e-4 (Adam's first step divides each gradient by its
 own magnitude, so rounding in a near-zero gradient shows). f32 matmuls
 run without TF32.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -450,9 +452,12 @@ def test_mamba2_scan_ragged_tail_reads_nothing_past_s():
 def test_mamba2_scan_refuses_what_it_cannot_take():
     gen = torch.Generator("cuda").manual_seed(8)
     x, Bm, Cm, a, dt = _scan_inputs(gen, 1, 2, 64, 64, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MS.mamba2_scan(x.requires_grad_(True), Bm, Cm, a, dt)
-    x = x.detach()
+    # a gradient is no longer refused: it flows through the backward kernel
+    n = MS.mamba2_scan_bwd.launches
+    xg = x.clone().requires_grad_(True)
+    MS.mamba2_scan(xg, Bm, Cm, a, dt).sum().backward()
+    assert MS.mamba2_scan_bwd.launches == n + 1
+    assert torch.isfinite(xg.grad).all() and xg.grad.abs().max() > 0
     with pytest.raises(ValueError, match="shapes"):
         MS.mamba2_scan(x[..., :48], Bm, Cm, a, dt)
     with pytest.raises(TypeError, match="dtypes"):
@@ -662,9 +667,12 @@ def test_mlstm_chunkwise_refuses_a_layout_tma_cannot_read():
 def test_mlstm_chunkwise_refuses_what_it_cannot_take():
     gen = torch.Generator("cuda").manual_seed(10)
     q, k, v, li, lf = _mlstm_inputs(gen, 1, 2, 64, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MK.mlstm_chunkwise(q.requires_grad_(True), k, v, li, lf)
-    q = q.detach()
+    # a gradient is no longer refused: it flows through the backward kernel
+    n = MK.mlstm_chunkwise_bwd.launches
+    qg = q.clone().requires_grad_(True)
+    MK.mlstm_chunkwise(qg, k, v, li, lf).sum().backward()
+    assert MK.mlstm_chunkwise_bwd.launches == n + 1
+    assert torch.isfinite(qg.grad).all() and qg.grad.abs().max() > 0
     with pytest.raises(ValueError, match="shapes"):
         MK.mlstm_chunkwise(q[..., :48], k[..., :48], v[..., :48], li, lf)
     with pytest.raises(TypeError, match="dtypes"):
@@ -1181,3 +1189,130 @@ def test_hier_step_launches_bucket_combine_per_local_round(m, kind):
         assert torch.equal(red[r], red[0])
     assert _err(red[0], stacked.sum(0)) <= 1e-5 * max(
         1.0, stacked.sum(0).abs().max().item())
+
+
+# ------------------------------------------- the recurrent backwards
+# each gradient within 1e-3 (f32 inputs) / 2e-2 (bf16) of its largest
+# |value|, as chip_smoke.py holds them
+BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def _dim_order(t):
+    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
+
+
+def _grads_close(got, want, ins, dtype, what):
+    torch.cuda.synchronize()
+    for i, (g, w, x) in enumerate(zip(got, want, ins)):
+        assert g.is_cuda and g.dtype == x.dtype and g.shape == x.shape
+        assert _dim_order(g) == _dim_order(x), (what, i)  # the input's layout
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), (what, i)
+        err = (g - w).abs().max().item()
+        assert err <= BWD_TOL[dtype] * w.abs().max().item(), (what, i, err)
+
+
+SCAN_BWD_CASES = [
+    (2, 3, 200, 16, 32), (1, 4, 128, 32, 16), (2, 2, 130, 64, 64),
+    (1, 2, 40, 64, 64),                 # S < 64
+    (1, 3, 1, 16, 64),                  # one row
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,NH,S,P,N", SCAN_BWD_CASES)
+def test_mamba2_scan_bwd_matches_plain(B, NH, S, P, N, dtype):
+    """The backward kernel against the plain backward on the model's
+    strided views (ragged S, S < 64), gradients in their inputs' dtypes
+    and layouts; a second call is bitwise the first."""
+    gen = torch.Generator("cuda").manual_seed(21)
+    ins = _scan_inputs(gen, B, NH, S, P, N, dtype)
+    dy = torch.randn((B, NH, S, P), generator=gen, device="cuda")
+    n = MS.mamba2_scan_bwd.launches
+    got = MS.mamba2_scan_bwd(*ins, dy)
+    assert MS.mamba2_scan_bwd.launches == n + 1
+    _grads_close(got, MS.mamba2_scan_bwd_plain(*ins, dy), ins, dtype,
+                 "mamba2_scan_bwd")
+    for a, b in zip(got, MS.mamba2_scan_bwd(*ins, dy)):
+        assert torch.equal(a, b)
+
+
+MLSTM_BWD_CASES = [
+    (2, 3, 200, 32, 0.0), (1, 2, 128, 64, 0.0), (2, 2, 130, 384, 0.0),
+    (1, 2, 40, 384, 0.0),               # S < 64
+    (1, 2, 1, 64, 0.0),                 # one row
+    (2, 2, 150, 64, -1.0),              # negative logi: the floor binds on
+                                        # some rows, not on others
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,NH,S,hd,ishift", MLSTM_BWD_CASES)
+def test_mlstm_chunkwise_bwd_matches_plain(B, NH, S, hd, ishift, dtype):
+    """The backward kernel (from the forward kernel's f32 y) against the
+    plain backward on the model's strided views; a second call is bitwise
+    the first."""
+    gen = torch.Generator("cuda").manual_seed(22)
+    q, k, v, li, lf = _mlstm_inputs(gen, B, NH, S, hd, dtype)
+    ins = (q, k, v, li + ishift, lf)
+    y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+    dy = torch.randn((B, NH, S, hd), generator=gen, device="cuda")
+    n = MK.mlstm_chunkwise_bwd.launches
+    got = MK.mlstm_chunkwise_bwd(*ins, y, dy)
+    assert MK.mlstm_chunkwise_bwd.launches == n + 1
+    _grads_close(got, MK.mlstm_chunkwise_bwd_plain(*ins, dy), ins, dtype,
+                 "mlstm_chunkwise_bwd")
+    for a, b in zip(got, MK.mlstm_chunkwise_bwd(*ins, y, dy)):
+        assert torch.equal(a, b)
+
+
+# Mamba2 and mLSTM layers of the reduced configs (each backward launches
+# its kernel once a layer)
+RECURRENT = {"zamba2-7b": (MS.mamba2_scan_bwd, 4),
+             "xlstm-125m": (MK.mlstm_chunkwise_bwd, 2)}
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_model_grads_on_card_match_cpu(arch, remat):
+    """Reduced zamba2 and xLSTM in f32: loss and every gradient leaf
+    through the kernels on the card against the plain versions on the
+    CPU (1e-4 of each leaf's largest value), the backward kernel launched
+    once a recurrent layer."""
+    cfg = get_config(arch).reduced()
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    b = make_batch(cfg.vocab_size, 2, 100, seed=0, step=0)
+    bwd, layers = RECURRENT[arch]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bt = {k: torch.tensor(v, device=dev) for k, v in b.items()}
+        n = bwd.launches
+        out[dev] = api.value_and_grad(_to(params, dev), bt, remat=remat)
+        if dev == "cuda":
+            assert bwd.launches == n + layers
+    (lc, _), gc = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    assert abs(lc.item() - lg.item()) <= 1e-4
+    for a, w in zip(tree_flatten(gg)[1], tree_flatten(gc)[1]):
+        assert a.is_cuda
+        assert (a.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_launch_train_cli_recurrent_on_card(arch, capsys):
+    """The train CLI on the card for both recurrent families, through the
+    elastic loop's program (2 -> 3 workers from step 3: the join lands at
+    step 2's boundary): finite losses, the backward kernel launched once
+    a recurrent layer and rank each step."""
+    bwd, layers = RECURRENT[arch]
+    n = bwd.launches
+    rc = launch_train.main(["--arch", arch, "--reduced", "--workers", "2",
+                            "--batch", "6", "--seq", "80", "--steps", "4",
+                            "--elastic", "join@2"])
+    out = capsys.readouterr().out
+    assert rc in (0, 1), out
+    losses = [json.loads(l)["loss"] for l in out.splitlines()
+              if l.startswith('{"loss"')]
+    assert losses and all(np.isfinite(losses))
+    assert bwd.launches - n == layers * (2 + 2 + 2 + 3)

@@ -319,7 +319,8 @@ def test_a_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.sources() == ["bucket_combine", "flash_attention",
                                "flash_attention_bwd", "flash_decode",
-                               "mamba2_scan", "mlstm_chunkwise"]
+                               "mamba2_scan", "mamba2_scan_bwd",
+                               "mlstm_chunkwise", "mlstm_chunkwise_bwd"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)

@@ -416,12 +416,20 @@ def test_dry_run_decode_cell_with_window_sharded_cache():
     assert res["fits"]
 
 
-def test_dry_run_skips_and_records_errors():
-    """A cell the assignment rules skip is ``skipped``; a cell whose step
-    raises is ``error`` with the exception (xLSTM training: the mLSTM
-    kernel has no backward yet)."""
+def test_dry_run_skips_and_records_errors(monkeypatch):
+    """A cell the assignment rules skip is ``skipped``; xLSTM training,
+    an error cell until the mLSTM kernel had a backward, traces ``ok``
+    (the mLSTM's backward work recorded); a cell whose step raises is
+    ``error`` with the exception (a kernel's meta rule made to raise)."""
     res = dryrun.run_cell("smollm-135m", "long_500k", device_type="cpu")
     assert res["status"] == "skipped" and "quadratic" in res["why"]
+    res = dryrun.run_cell("xlstm-125m", "train_4k", device_type="cpu")
+    assert res["status"] == "ok", res.get("error")
+    assert res["kernels"]["mlstm_chunkwise_bwd"]["calls"] > 0
+
+    def refuse(*args, **kw):
+        raise NotImplementedError("mlstm_chunkwise: planted refusal")
+    monkeypatch.setattr(MK, "_forward", refuse)
     res = dryrun.run_cell("xlstm-125m", "train_4k", device_type="cpu")
     assert res["status"] == "error"
     assert res["error"].startswith("NotImplementedError: mlstm_chunkwise")
