@@ -235,13 +235,16 @@ against faults planted in the bf16 kernels' sources (``planted``):
 30. recurrent backward parity: ``mamba2_scan_bwd`` and
    ``mlstm_chunkwise_bwd`` against their plain backwards on the card
    (seeded inputs in the models' strided layouts, a random cotangent):
-   the scan at P, N over 16, 32 and 64, a ragged S, S < 64 and the train
-   shape B=2, NH=112, S=2048, P=N=64; the mLSTM at hd 32, 64 and 384, a
-   ragged S, S < 64 and B=8, NH=4, S=2048, hd 384; f32 and bf16 inputs,
-   each gradient within ``BWD_TOL`` (1e-3 f32, 2e-2 bf16) of its largest
-   |value|; two runs at the train shapes bitwise equal; both timed
-   beside their plain backwards (no PyTorch call computes either), with
-   ptxas' registers and spills;
+   the scan at P, N over 16, 32 and 64, a ragged S, S < 64, the table's
+   shape B=2, NH=112, S=2048, P=N=64 and the hybrid train path's B=1,
+   S=4096; the mLSTM at hd 32, 64 and 384, a ragged S, S < 64, B=8, NH=4,
+   S=2048, hd 384 and the xLSTM train path's B=2, S=1024; f32 and bf16
+   inputs, each gradient within ``BWD_TOL`` (1e-3 f32, 2e-2 bf16) of its
+   largest |value|; two runs at those four shapes bitwise equal; both
+   timed in bf16 (the tensor-core kernels) at the table's and the train
+   paths' shapes beside their plain backwards (no PyTorch call computes
+   either), with TFLOP/s and ptxas' registers and spills of each CUDA
+   function;
 31. hybrid train reference: reduced zamba2 in f32 (S = 100), loss and
    every gradient leaf through the kernels on the card against the
    plain versions on the CPU (1e-4 of each leaf's largest value), and a
@@ -762,15 +765,21 @@ def phase_profile(api, params, eng) -> None:
     }, "profile.txt")
 
 
+# the CUDA functions of one bf16 call of each backward (tensor cores),
+# each launched once a call; f32 inputs keep the CUDA-core kernels
+SCAN_BWD_TC = ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_reduce")
+MLSTM_BWD_TC = ("mlstm_bwd_fstate", "mlstm_bwd_local", "mlstm_bwd_rstate",
+                "mlstm_bwd_dqdk", "mlstm_bwd_dv")
 # the port's own kernels, by the names of their CUDA functions
 PORT_KERNELS = {"attention": ("attn_kernel", "fa_fwd_wgmma", "bwd_dot",
                               "bwd_dkdv", "bwd_dq", "fa_dkdv_wgmma",
                               "fa_dq_wgmma") + DECODE,
                 "ssd scan": ("ssd_kernel",) + SCAN_BF16,
                 "mlstm": ("mlstm_kernel",) + MLSTM_BF16,
-                "ssd scan bwd": ("ssd_bwd_kernel", "ssd_bwd_reduce"),
-                "mlstm bwd": ("mlstm_delta", "mlstm_bwd_kernel",
-                              "mlstm_bwd_reduce")}
+                "ssd scan bwd": SCAN_BWD_TC + ("ssd_bwd_kernel",),
+                "mlstm bwd": MLSTM_BWD_TC + ("mlstm_delta",
+                                             "mlstm_bwd_kernel",
+                                             "mlstm_bwd_reduce")}
 
 
 def profile_work(work: dict, fname: str) -> None:
@@ -2039,9 +2048,9 @@ def phase_xlstm_serve(api, params) -> dict:
 # this share of the gradient's largest |value|, by the inputs' dtype
 # (f32: the scan forward's bound, SCAN_TOL)
 BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
-# the CUDA functions each backward call launches once
-SCAN_BWD = PORT_KERNELS["ssd scan bwd"]
-MLSTM_BWD = PORT_KERNELS["mlstm bwd"]
+# the ptxas names of the bf16 backward kernels (csrc/<source>.cu)
+SCAN_BWD_PTXAS = ("mamba2_scan_bwd", SCAN_BWD_TC[:2])
+MLSTM_BWD_PTXAS = ("mlstm_chunkwise_bwd", MLSTM_BWD_TC)
 
 
 def _bwd_err(got, want, dtype, what: str) -> float:
@@ -2063,30 +2072,35 @@ def _bwd_err(got, want, dtype, what: str) -> float:
 
 
 def _bwd_row(name, source, replaces, shape, err, fn, plain, kernels,
-             nbytes, flops, peak, func):
+             nbytes, flops, peak, ptxas):
     ms, host = time_ms(fn, kernels=kernels)
     plain_ms, _ = time_ms(plain, iters=3)
     t_ops, t_bytes = flops / PEAK_FLOPS[peak], nbytes / PEAK_BYTES
+    src, funcs = ptxas
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": shape, "max_abs_err": err,
             "ms": ms, "host_ms": host, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "ptxas": ptxas_regs(
-                os.path.splitext(os.path.basename(source))[0], func)}
+            "library_ms": None, "tflops": flops / (ms * 1e9),
+            "ptxas": "; ".join(f"{f} {ptxas_regs(src, r'tcb[0-9]+' + f)}"
+                               for f in funcs)}
 
 
 def phase_recurrent_bwd_parity():
     """The two backward kernels against their plain backwards on the card,
     from seeded inputs in the models' strided layouts and a random
     cotangent: ``mamba2_scan_bwd`` at P, N over every value of ``DIMS``, a
-    ragged S, S < 64 and the train shape (B=2, NH=112, S=2048, P=N=64);
-    ``mlstm_chunkwise_bwd`` at hd 32, 64, 384, a ragged S, S < 64 and the
-    train shape (B=8, NH=4, S=2048, hd=384); f32 and bf16 inputs, each
-    gradient within ``BWD_TOL`` of its largest |value|; two runs at the
-    train shapes bitwise equal. Then both timed beside their plain
-    backwards (no PyTorch call computes either: library null); returns
-    the two rows (max_abs_err: the worst relative reading in bf16)."""
+    ragged S, S < 64, the table's shape (B=2, NH=112, S=2048, P=N=64) and
+    the hybrid train path's (B=1, NH=112, S=4096); ``mlstm_chunkwise_bwd``
+    at hd 32, 64, 384, a ragged S, S < 64, the table's shape (B=8, NH=4,
+    S=2048, hd=384) and the xLSTM train path's (B=2, NH=4, S=1024); f32
+    and bf16 inputs, each gradient within ``BWD_TOL`` of its largest
+    |value|; two runs at the table's and the train paths' shapes bitwise
+    equal. Then both timed in bf16 at both shapes beside their plain
+    backwards (no PyTorch call computes either: library null), with
+    TFLOP/s from ``scan_bwd_flops`` / ``mlstm_bwd_cost``; returns the four
+    rows (max_abs_err: the worst relative reading in bf16)."""
     import torch
     from repro_torch.kernels import meta
     from repro_torch.kernels import mamba2_scan as MS
@@ -2094,10 +2108,12 @@ def phase_recurrent_bwd_parity():
 
     gen = torch.Generator("cuda").manual_seed(22)
     worst = {"scan": 0.0, "mlstm": 0.0}
+    timed = (2048, 4096, 1024)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        for B, NH, S, P, N in ((2, 112, 2048, 64, 64), (2, 4, 1000, 16, 32),
-                               (1, 4, 40, 32, 64), (2, 3, 300, 64, 16)):
+        for B, NH, S, P, N in ((2, 112, 2048, 64, 64), (1, 112, 4096, 64, 64),
+                               (2, 4, 1000, 16, 32), (1, 4, 40, 32, 64),
+                               (2, 3, 300, 64, 16)):
             ins = _scan_inputs(gen, B, NH, S, dtype, P=P, N=N)
             dy = torch.randn((B, NH, S, P), generator=gen, device="cuda")
             got = MS.mamba2_scan_bwd(*ins, dy)
@@ -2109,12 +2125,13 @@ def phase_recurrent_bwd_parity():
                   f"largest value")
             if dtype == torch.bfloat16:
                 worst["scan"] = max(worst["scan"], e)
-            if S == 2048 and not all(torch.equal(a, b) for a, b in zip(
+            if S in timed and not all(torch.equal(a, b) for a, b in zip(
                     got, MS.mamba2_scan_bwd(*ins, dy))):
-                fail(f"mamba2_scan_bwd {name}: two runs differ")
+                fail(f"mamba2_scan_bwd {name} S={S}: two runs differ")
             del ins, dy, got
-        for B, NH, S, hd in ((8, 4, 2048, 384), (2, 4, 1000, 384),
-                             (2, 4, 40, 64), (2, 2, 300, 32)):
+        for B, NH, S, hd in ((8, 4, 2048, 384), (2, 4, 1024, 384),
+                             (2, 4, 1000, 384), (2, 4, 40, 64),
+                             (2, 2, 300, 32)):
             ins = _mlstm_inputs(gen, B, NH, S, hd, dtype)
             y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
             dy = torch.randn((B, NH, S, hd), generator=gen, device="cuda")
@@ -2127,47 +2144,49 @@ def phase_recurrent_bwd_parity():
                   f"largest value")
             if dtype == torch.bfloat16:
                 worst["mlstm"] = max(worst["mlstm"], e)
-            if S == 2048 and not all(torch.equal(a, b) for a, b in zip(
+            if S in timed and not all(torch.equal(a, b) for a, b in zip(
                     got, MK.mlstm_chunkwise_bwd(*ins, y, dy))):
-                fail(f"mlstm_chunkwise_bwd {name}: two runs differ")
+                fail(f"mlstm_chunkwise_bwd {name} S={S}: two runs differ")
             del ins, y, dy, got
     torch.cuda.empty_cache()
-    print("parity: both backward kernels bitwise repeatable at the train "
-          "shapes")
+    print("parity: both backward kernels bitwise repeatable at the table's "
+          "and the train paths' shapes")
 
     rows = []
-    B, NH, S, P, N = 2, 112, 2048, 64, 64
-    ins = _scan_inputs(gen, B, NH, S, torch.bfloat16)
-    dy = torch.randn((B, NH, S, P), generator=gen, device="cuda")
-    grads = MS.mamba2_scan_bwd(*ins, dy)
-    rows.append(_bwd_row(
-        "mamba2_scan_bwd", "src/repro_torch/csrc/mamba2_scan_bwd.cu",
-        "src/repro/kernels/mamba2_scan.py:64 (backward; the reference "
-        "differentiates src/repro/models/ssm.py:128)",
-        f"B={B} NH={NH} S={S} P={P} N={N}, x bf16, dy f32", worst["scan"],
-        lambda: MS.mamba2_scan_bwd(*ins, dy),
-        lambda: MS.mamba2_scan_bwd_plain(*ins, dy), SCAN_BWD,
-        meta.nbytes(*ins, dy, *grads), MS.scan_bwd_flops(B, NH, S, P, N),
-        "bfloat16", r"ssd_bwd_kernelI13__nv_bfloat16Li64ELi64E"))
-    del ins, dy, grads
-    B, NH, S, hd = 8, 4, 2048, 384
-    ins = _mlstm_inputs(gen, B, NH, S, hd, torch.bfloat16)
-    y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
-    dy = torch.randn((B, NH, S, hd), generator=gen, device="cuda")
-    nbytes, flops = MK.mlstm_bwd_cost(B, NH, S, hd, 2, 4)
-    rows.append(_bwd_row(
-        "mlstm_chunkwise_bwd", "src/repro_torch/csrc/mlstm_chunkwise_bwd.cu",
-        "src/repro/kernels/mlstm_kernel.py:77 (backward; the reference "
-        "differentiates src/repro/models/xlstm.py:117)",
-        f"B={B} NH={NH} S={S} hd={hd}, q/k/v bf16, y/dy f32",
-        worst["mlstm"], lambda: MK.mlstm_chunkwise_bwd(*ins, y, dy),
-        lambda: MK.mlstm_chunkwise_bwd_plain(*ins, dy), MLSTM_BWD,
-        nbytes, flops, "bfloat16", r"mlstm_bwd_kernelI13__nv_bfloat16Li384E"))
-    del ins, y, dy
+    for B, NH, S in ((2, 112, 2048), (1, 112, 4096)):
+        ins = _scan_inputs(gen, B, NH, S, torch.bfloat16)
+        dy = torch.randn((B, NH, S, 64), generator=gen, device="cuda")
+        grads = MS.mamba2_scan_bwd(*ins, dy)
+        rows.append(_bwd_row(
+            "mamba2_scan_bwd", "src/repro_torch/csrc/mamba2_scan_bwd.cu",
+            "src/repro/kernels/mamba2_scan.py:64 (backward; the reference "
+            "differentiates src/repro/models/ssm.py:128)",
+            f"B={B} NH={NH} S={S} P=64 N=64, x bf16, dy f32", worst["scan"],
+            lambda: MS.mamba2_scan_bwd(*ins, dy),
+            lambda: MS.mamba2_scan_bwd_plain(*ins, dy), SCAN_BWD_TC,
+            meta.nbytes(*ins, dy, *grads),
+            MS.scan_bwd_flops(B, NH, S, 64, 64), "bfloat16", SCAN_BWD_PTXAS))
+        del ins, dy, grads
+    for B, NH, S in ((8, 4, 2048), (2, 4, 1024)):
+        ins = _mlstm_inputs(gen, B, NH, S, 384, torch.bfloat16)
+        y = MK.mlstm_chunkwise(*ins, out_dtype=torch.float32)
+        dy = torch.randn((B, NH, S, 384), generator=gen, device="cuda")
+        nbytes, flops = MK.mlstm_bwd_cost(B, NH, S, 384, 2, 4)
+        rows.append(_bwd_row(
+            "mlstm_chunkwise_bwd",
+            "src/repro_torch/csrc/mlstm_chunkwise_bwd.cu",
+            "src/repro/kernels/mlstm_kernel.py:77 (backward; the reference "
+            "differentiates src/repro/models/xlstm.py:117)",
+            f"B={B} NH={NH} S={S} hd=384, q/k/v bf16, y/dy f32",
+            worst["mlstm"], lambda: MK.mlstm_chunkwise_bwd(*ins, y, dy),
+            lambda: MK.mlstm_chunkwise_bwd_plain(*ins, dy), MLSTM_BWD_TC,
+            nbytes, flops, "bfloat16", MLSTM_BWD_PTXAS))
+        del ins, y, dy
     torch.cuda.empty_cache()
     for r in rows:
         print_timing(r)
-        print(f"ptxas {r['name']}: {r['ptxas']}")
+        print(f"backward {r['name']} at {r['shape']}: {r['tflops']:.1f} "
+              f"TFLOP/s; ptxas {r['ptxas']}")
     return rows
 
 

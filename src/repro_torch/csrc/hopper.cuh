@@ -84,6 +84,13 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// dynamic shared memory past 48 KB for `kernel`; a cudaError value
+template <typename K>
+inline int grant_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -274,6 +281,94 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64 x 64, f32) = A(64 x 16, K-major) * B(16 x 64, MN-major: the
+// output's columns contiguous, as V in P V) (+ D if accumulate), both
+// from shared memory
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ------------------------------------------ 64 x 64 bf16 tiles (the
+// backward kernels' operands). A tile is 64 rows of 64 bf16 (128 bytes a
+// row, 8 KB) in the 128-byte-swizzled layout above.
+constexpr int TILE64 = 64 * 128;
+
+// byte offset of element (r, k) of a tile: 16-byte chunk k / 8 of row r
+// at chunk (k / 8) ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * 128 + ((((k >> 3) ^ (r & 7)) << 4) | ((k & 7) << 1));
+}
+
+// element (r, k) of a bf16 tile as f32
+__device__ __forceinline__ float tile_f32(const uint8_t* tile, int r, int k) {
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(tile + swz(r, k)));
+}
+
+// row and column of element ix of a thread's m64n64 accumulator (the
+// layout of to_a_frags below)
+__device__ __forceinline__ int acc_row(int i0, int gq, int ix) {
+  return i0 + gq + 8 * ((ix >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int tq, int ix) {
+  return 8 * (ix >> 2) + 2 * tq + (ix & 1);
+}
+
+// the first 1024-byte boundary at or after p (a swizzled tile's start)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// cp.async of 64 rows x 64 bf16 from `src` (row stride `ld` elements,
+// every row 16-byte aligned) into a tile; rows at or past `nr` are
+// zeros and are not read. `n` threads, this one `t`; the caller commits
+__device__ __forceinline__ void load_tile64(uint8_t* dst,
+                                            const __nv_bfloat16* src,
+                                            long long ld, int nr, int t,
+                                            int n) {
+  for (int e = t; e < 512; e += n) {
+    const int r = e >> 3, c = e & 7;
+    const bool ok = r < nr;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
+               src + (ok ? r * ld + 8 * c : 0), ok ? 16 : 0);
+  }
+}
+
+// D (+)= A B over one 64-deep tile pair (four k16 steps): A a K-major
+// tile (rows the output's rows), B K-major (rows the output's columns:
+// D = A B^T of the two tiles as stored) or MN-major (rows the reduction:
+// D = A B). The caller fences before and commits after.
+__device__ __forceinline__ void mma64_kk(float (&d)[32], const uint8_t* a,
+                                         const uint8_t* b, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, desc(a + kk * 32, 16, 1024), desc(b + kk * 32, 16, 1024),
+             accumulate || kk > 0);
+}
+
+__device__ __forceinline__ void mma64_kn(float (&d)[32], const uint8_t* a,
+                                         const uint8_t* b, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_mn(d, desc(a + kk * 32, 16, 1024),
+                desc(b + kk * 16 * 128, TILE64, 1024), accumulate || kk > 0);
 }
 
 // D(64 x 8, f32) = A(64 x 16) * B(16 x 8) (+ D if accumulate), both from

@@ -331,12 +331,7 @@ constexpr int TC_STAGES = 3;          // chunks of x, B, C tiles in flight
 constexpr size_t TC_SMEM = (size_t)(TC_STAGES * 3 + 2 + 2) * TILE_BYTES +
                            sizeof(float) * (2 * 4 + TC_STAGES * 2) * CH + 1024;
 
-// byte offset of element (r, k) of a tile in the 128-byte-swizzled
-// layout wgmma reads (hopper.cuh): 16-byte chunk k / 8 of row r at chunk
-// (k / 8) ^ (r % 8)
-__device__ __forceinline__ int swz(int r, int k) {
-  return r * 128 + ((((k >> 3) ^ (r & 7)) << 4) | ((k & 7) << 1));
-}
+using hopper::swz;
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(

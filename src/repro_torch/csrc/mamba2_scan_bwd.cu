@@ -28,8 +28,53 @@
 // each gradient takes its input's layout. Rows past S are zeros with
 // log a = 0: they add nothing and are never written.
 //
-// ssd_bwd_kernel, one block per (head, batch row), 256 threads, f32 on
-// the CUDA cores (inputs converted at load):
+// Bound on the card: bytes. At the hybrid prefill's shape (B=2, NH=112,
+// S=2048, P=N=64, x bf16) the inputs, dy and the gradients once each are
+// about 244 MB, 0.073 ms at 3.35 TB/s; the hybrid train path's rank (B=1,
+// S=4096) is the same size. scan_bwd_flops counts 3.758e10 flops there.
+//
+// bf16 x, B, C at P = N = 64 (the model's training path): the
+// tensor-core route, three launches. The recurrence's one serial part is
+// the state at each chunk boundary, so two state passes come first and
+// every other term is computed chunk by chunk from them. Every product
+// runs on wgmma (bf16 operands from 128-byte-swizzled tiles, f32
+// accumulators, 64-row tiles; hopper.cuh), one bf16 operand each: x, B
+// and C are exact, and the f32 operands (x o dt o dec, dy o e^la, h0, dh,
+// dy, dG, W) are rounded to bf16 once. A CPU emulation of these rounding
+// points (tests/test_torch_recurrent_bwd.py) puts every gradient about
+// 4e-3 of its largest value off the plain backward, inside the card's
+// 2e-2; keeping the forward's hi/lo pairs for all of them only brings
+// that to about 3e-3 (the bf16 gradients' own rounding), so no lo
+// product is kept. Each block is one warpgroup (128 threads); tiles
+// arrive by 16-byte cp.async; no atomics (repeated runs are bitwise
+// equal).
+//  1. ssd_bwd_state: one block per (head, batch row, direction), NH x B x
+//     2 (448 at the prefill's shape, 224 at the train path's), walking the
+//     chunks with the 64 x 64 state in the accumulators: forward, h stored
+//     (bf16) at each chunk's start, then h = e^{la_end} h + (x o dt o
+//     dec)^T B; reverse, dh stored at each chunk's end, then dh =
+//     e^{la_end} dh + (dy o e^la)^T C; A built in registers from the x or
+//     dy tile, B or C the MN-major B tile; the next chunk's tiles and gate
+//     rows load a chunk ahead. 108 registers, 53,248 bytes of shared
+//     memory.
+//  2. ssd_bwd_chunk: one block per (chunk, group of G = 4 heads, batch
+//     row), nch x NH/4 x B (1792 at both shapes). C B^T once for the
+//     group; per head dW = (dy x^T) o dt on the lower triangle, W, dG and
+//     M; dxdt = dec o (B dh^T) + W^T dy, so dx and ddt; dC += e^la o (dy
+//     h0) + dG B and dB += (dt dec) o (x dh) + dG^T C in the accumulators,
+//     in head order; the dla terms, <dh, h0>, the reverse cumsum (one
+//     warp) and da. 251 registers, 95,264 bytes.
+//  3. ssd_bwd_reduce sums the groups' dB and dC in group order.
+// ptxas reports no spills (chiprun_out/ptxas.txt). Scratch, allocated by
+// the wrapper (at both shapes): h and dh (B, NH, nch, 64, 64) bf16, 58.7
+// MB each; the groups' dB and dC (B, NH/4, S, 64) f32, 29.4 MB each: 176
+// MB, against the CUDA-core route's 352 MB.
+//
+// f32 inputs (the reduced reference phases and the f32 checks at 1e-3),
+// and bf16 at the other P, N of DIMS (no main path): the CUDA-core kernel
+// of the first port, unchanged. ssd_bwd_kernel, one block per (head,
+// batch row), 256 threads, f32 on the CUDA cores (inputs converted at
+// load):
 //  1. a forward sweep recomputes h at each chunk start, as the forward
 //     kernel's state update does, into the scratch hbuf (B, NH, chunks,
 //     P, N) f32;
@@ -46,19 +91,12 @@
 // ssd_bwd_reduce sums them over the heads in head order (Bmat and Cmat
 // are shared by the NH heads of a batch row). No atomics: repeated runs
 // are bitwise equal.
-//
-// Bytes: the inputs, dy and the gradients once each are about 244 MB at
-// the hybrid prefill's shape (B=2, NH=112, S=2048, P=N=64, x bf16),
-// 0.073 ms at 3.35 TB/s. This simple design also writes and reads the
-// chunk-start states (117 MB each way there) and the per-head dB, dC
-// partials (117 MB each, written and read), and reads x, B and C twice
-// (both sweeps): about 5x those bytes. Its products, about 10 c^2 (P + N)
-// flops a chunk row-block, run on the CUDA cores at f32; the tensor
-// cores and keeping h0 on chip are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -608,6 +646,452 @@ int launch(const Args& g, int B, int P, int N, TI* dbm, TI* dcm,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ tensor cores
+// bf16 x, B, C at P = N = 64 (the model's training path): three launches,
+// the products on wgmma, one bf16 operand each (the note at the top).
+namespace tcb {
+
+using bf16 = __nv_bfloat16;
+using hopper::acc_col;
+using hopper::acc_row;
+using hopper::align1024;
+using hopper::swz;
+using hopper::TILE64;
+
+constexpr int NT = 128;               // one warpgroup a block
+constexpr int G = 4;                  // heads a block of ssd_bwd_chunk
+constexpr int FST = 68;               // padded row of an f32 dy tile
+constexpr int SRCB = 64 * FST * 4;    // bytes of an x or f32 dy stage
+
+// la = cumsum log(a + 1e-20) over a chunk by one warp from its a, rows 2
+// lane and 2 lane + 1 (a = 1 at or past S, so la stays flat there); la_end
+__device__ __forceinline__ void scan_gates(const float (&av)[2], int lane,
+                                           float (&la)[2], float& lend) {
+  const float l[2] = {logf(av[0] + 1e-20f), logf(av[1] + 1e-20f)};
+  float incl = l[0] + l[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  la[0] = excl + l[0];
+  la[1] = la[0] + l[1];
+  lend = __shfl_sync(0xffffffffu, la[1], 31);
+}
+
+// cp.async of 64 rows x 64 f32 (row stride `ld` elements, 16-byte aligned
+// rows) into rows of FST floats; rows at or past nr are zeros
+__device__ __forceinline__ void load_f32(float* dst, const float* src,
+                                         long long ld, int nr, int t) {
+  for (int e = t; e < 1024; e += NT) {
+    const int r = e >> 4, c = e & 15;
+    const bool ok = r < nr;
+    hopper::cp_async16(dst + r * FST + 4 * c, src + (ok ? r * ld + 4 * c : 0),
+                       ok ? 16 : 0);
+  }
+}
+
+struct Args {
+  const bf16* x;
+  const bf16* bm;
+  const bf16* cm;
+  const float* a;
+  const float* dt;
+  const float* dy;
+  bf16* hbuf;           // (B, NH, nch, 64, 64) h at each chunk's start
+  bf16* dhbuf;          // (B, NH, nch, 64, 64) dh at each chunk's end
+  float* dbp;           // (B, groups, S, 64) dB summed over a group
+  float* dcp;           // (B, groups, S, 64) dC likewise
+  bf16* dx;
+  float* da;
+  float* ddt;
+  long long xsb, xsh, xss, bsb, bss, csb, css, asb, ash, ass, tsb, tsh, tss,
+      ysb, ysh, yss, gxsb, gxsh, gxss, gasb, gash, gass, gtsb, gtsh, gtss;
+  int NH, S, nch, ngroup;
+};
+
+constexpr int SMEM_STATE = 2 * (SRCB + TILE64) + 4 * 64 * 4 + 1024;
+
+// One block per (head, batch row, direction), walking the chunks: forward
+// (z = 0) h, stored bf16 at each chunk's start, then h = e^{la_end} h +
+// (x o dt o dec)^T B; reverse (z = 1) dh, stored at each chunk's end, then
+// dh = e^{la_end} dh + (dy o e^la)^T C. A is built in registers from the
+// x (bf16) or dy (f32) tile, scaled (the register-A operand of wgmma); B
+// or C is the MN-major B tile. Every warp takes the chunk's gates itself.
+// The next chunk's tiles and gate rows load while this one computes.
+__global__ void __launch_bounds__(NT) ssd_bwd_state(Args g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* SRC = sm;                        // [2] x (bf16) or dy (f32)
+  uint8_t* MAT = sm + 2 * SRCB;             // [2] B or C
+  float* gin = reinterpret_cast<float*>(MAT + 2 * TILE64);  // [2][a, dt][64]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const bool rev = blockIdx.z == 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3, i0 = 16 * warp;
+  const size_t bh = (size_t)b * g.NH + h;
+  const bf16* xb = g.x + b * g.xsb + h * g.xsh;
+  const float* yb = g.dy + b * g.ysb + h * g.ysh;
+  const bf16* mb = rev ? g.cm + b * g.csb : g.bm + b * g.bsb;
+  const long long mss = rev ? g.css : g.bss;
+  const float* ab = g.a + b * g.asb + h * g.ash;
+  const float* tb = g.dt + b * g.tsb + h * g.tsh;
+  bf16* out = rev ? g.dhbuf : g.hbuf;
+  auto chunk_of = [&](int i) { return rev ? g.nch - 1 - i : i; };
+  auto load = [&](int i) {
+    if (i < g.nch) {
+      const int s0 = chunk_of(i) * 64, nr = min(64, g.S - s0);
+      if (rev)
+        load_f32(reinterpret_cast<float*>(SRC + (i & 1) * SRCB),
+                 yb + s0 * g.yss, g.yss, nr, tid);
+      else
+        hopper::load_tile64(SRC + (i & 1) * SRCB, xb + s0 * g.xss, g.xss, nr,
+                            tid, NT);
+      hopper::load_tile64(MAT + (i & 1) * TILE64, mb + s0 * mss, mss, nr, tid,
+                          NT);
+      if (tid < 64) {            // the chunk's a and dt; 0 past S
+        const bool ok = tid < nr;
+        const long long r = s0 + (ok ? tid : 0);
+        float* d = gin + (i & 1) * 128 + tid;
+        hopper::cp_async4(d, ab + r * g.ass, ok ? 4 : 0);
+        hopper::cp_async4(d + 64, tb + r * g.tss, ok ? 4 : 0);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+  float acc[32];
+#pragma unroll
+  for (int ix = 0; ix < 32; ++ix) acc[ix] = 0.f;
+  load(0);
+  for (int i = 0; i < g.nch; ++i) {
+    const int c = chunk_of(i), s0 = c * 64, nr = min(64, g.S - s0);
+    load(i + 1);
+    bf16* so = out + (bh * g.nch + c) * 4096;
+#pragma unroll
+    for (int ix = 0; ix < 32; ix += 2)
+      *reinterpret_cast<__nv_bfloat162*>(so + acc_row(i0, gq, ix) * 64 +
+                                         acc_col(tq, ix)) =
+          __floats2bfloat162_rn(acc[ix], acc[ix + 1]);
+    hopper::cp_async_wait<1>();
+    hopper::fence_proxy_async();
+    __syncthreads();             // this chunk's tiles and gate rows are in
+    // the gates, in every warp: the scales of rows 2 lane, 2 lane + 1
+    const float* gi = gin + (i & 1) * 128;
+    float sc[2], eend;
+    {
+      const float av[2] = {2 * lane < nr ? gi[2 * lane] : 1.f,
+                           2 * lane + 1 < nr ? gi[2 * lane + 1] : 1.f};
+      float la[2], lend;
+      scan_gates(av, lane, la, lend);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        sc[u] = rev ? expf(la[u]) : gi[64 + 2 * lane + u] * expf(lend - la[u]);
+      eend = expf(lend);
+    }
+    // A = (sc o src)^T as register fragments: element (row, k) is the
+    // source's (k, row) scaled by sc_k; rows i0 + gq (+8), k = 16 kk + 2 tq
+    // (+1, +8)
+    const uint8_t* src = SRC + (i & 1) * SRCB;
+    const float* fs = reinterpret_cast<const float*>(src);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int sl = 8 * kk + tq + 4 * hh;        // the lane of rows k, k+1
+        const float s0v = __shfl_sync(0xffffffffu, sc[0], sl);
+        const float s1v = __shfl_sync(0xffffffffu, sc[1], sl);
+        const int k = 2 * sl;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int row = i0 + gq + 8 * u;
+          const float v0 = rev ? fs[k * FST + row] : hopper::tile_f32(src, k, row);
+          const float v1 = rev ? fs[(k + 1) * FST + row] : hopper::tile_f32(src, k + 1, row);
+          af[kk][2 * hh + u] = hopper::pack_bf16(v0 * s0v, v1 * s1v);
+        }
+      }
+#pragma unroll
+    for (int ix = 0; ix < 32; ++ix) acc[ix] *= eend;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs(acc, af[kk],
+                       hopper::desc(MAT + (i & 1) * TILE64 + kk * 16 * 128,
+                                    TILE64, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncthreads();
+  }
+}
+
+constexpr int SMEM_CHUNK = 9 * TILE64 + 64 * FST * 4 + (12 * 64 + 8) * 4 + 1024;
+
+// One block per (chunk, group of G heads, batch row). S = C B^T once for
+// the group; per head: dW = (dy x^T) o dt_s on the lower triangle, W = S
+// o L, dG = dW o L, M = dW o W; dxdt = dec o (B dh^T) + W^T dy, dx and
+// ddt; dC += e^la o (dy h0) + dG B and dB += (dt dec) o (x dh) + dG^T C in
+// registers, in head order; the dla terms, <dh, h0>, the reverse cumsum
+// and da. The group's dB and dC go to dbp, dcp.
+__global__ void __launch_bounds__(NT) ssd_bwd_chunk(Args g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Bt = sm;                         // B [s][n]
+  uint8_t* Ct = Bt + TILE64;                // C [t][n]
+  uint8_t* X = Ct + TILE64;                 // x [s][p]
+  uint8_t* DY = X + TILE64;                 // dy [t][p], bf16
+  uint8_t* H0 = DY + TILE64;                // h0 [p][n]
+  uint8_t* DH = H0 + TILE64;                // dh [p][n]
+  uint8_t* DG = DH + TILE64;                // dG [t][s]
+  uint8_t* DGT = DG + TILE64;               // dG^T [s][t]
+  uint8_t* WT = DGT + TILE64;               // W^T [s][t]
+  float* DYF = reinterpret_cast<float*>(WT + TILE64);   // dy, f32
+  float* la = DYF + 64 * FST;
+  float* av = la + 64;
+  float* dtv = av + 64;
+  float* dec = dtv + 64;
+  float* ela = dec + 64;
+  float* rowm = ela + 64;
+  float* cst = rowm + 64;
+  float* qv = cst + 64;
+  float* colp = qv + 64;                    // [4][64]
+  float* red = colp + 256;                  // [8]
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int s0 = c * 64, nr = min(64, g.S - s0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3, i0 = 16 * warp;
+  hopper::load_tile64(Bt, g.bm + b * g.bsb + s0 * g.bss, g.bss, nr, tid, NT);
+  hopper::load_tile64(Ct, g.cm + b * g.csb + s0 * g.css, g.css, nr, tid, NT);
+  hopper::cp_async_commit();
+  float sacc[32], dbs[32], dcs[32];
+#pragma unroll
+  for (int ix = 0; ix < 32; ++ix) dbs[ix] = dcs[ix] = 0.f;
+  const int h1 = min(g.NH, (grp + 1) * G);
+  for (int h = grp * G; h < h1; ++h) {
+    const size_t bh = (size_t)b * g.NH + h;
+    hopper::load_tile64(X, g.x + b * g.xsb + h * g.xsh + s0 * g.xss, g.xss, nr,
+                        tid, NT);
+    load_f32(DYF, g.dy + b * g.ysb + h * g.ysh + s0 * g.yss, g.yss, nr, tid);
+    hopper::load_tile64(H0, g.hbuf + (bh * g.nch + c) * 4096, 64, 64, tid, NT);
+    hopper::load_tile64(DH, g.dhbuf + (bh * g.nch + c) * 4096, 64, 64, tid, NT);
+    hopper::cp_async_commit();
+    float eend = 0.f;
+    if (warp == 0) {
+      const float* ab = g.a + b * g.asb + h * g.ash;
+      const float a2[2] = {2 * lane < nr ? ab[(s0 + 2 * lane) * g.ass] : 1.f,
+                           2 * lane + 1 < nr ? ab[(s0 + 2 * lane + 1) * g.ass]
+                                             : 1.f};
+      float l[2], lend;
+      scan_gates(a2, lane, l, lend);
+      const float* tb = g.dt + b * g.tsb + h * g.tsh;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = 2 * lane + u;
+        la[r] = l[u];
+        av[r] = a2[u];
+        dtv[r] = r < nr ? tb[(s0 + r) * g.tss] : 0.f;
+        dec[r] = expf(lend - l[u]);
+        ela[r] = expf(l[u]);
+      }
+      eend = expf(lend);
+    }
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    // dy as bf16 [t][p]
+    for (int e = tid; e < 2048; e += NT) {
+      const int r = e >> 5, k = 2 * (e & 31);
+      *reinterpret_cast<__nv_bfloat162*>(DY + swz(r, k)) =
+          __floats2bfloat162_rn(DYF[r * FST + k], DYF[r * FST + k + 1]);
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();
+    float dw[32];
+    hopper::wgmma_fence();
+    if (h == grp * G) hopper::mma64_kk(sacc, Ct, Bt, false);
+    hopper::mma64_kk(dw, DY, X, false);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dw);
+    // W, dG, M; the tiles; M's row and column sums
+    float rm[2] = {0.f, 0.f}, cm[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) cm[j] = 0.f;
+#pragma unroll
+    for (int ix = 0; ix < 32; ix += 2) {
+      const int t = acc_row(i0, gq, ix);
+      float dgv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int s = acc_col(tq, ix + e);
+        float w = 0.f, dg = 0.f, m = 0.f;
+        if (s <= t) {
+          const float L = expf(la[t] - la[s]);
+          const float dwv = dw[ix + e] * dtv[s];
+          w = sacc[ix + e] * L;
+          dg = dwv * L;
+          m = dwv * w;
+        }
+        dgv[e] = dg;
+        rm[(ix >> 1) & 1] += m;
+        cm[2 * (ix >> 2) + e] += m;
+        *reinterpret_cast<bf16*>(DGT + swz(s, t)) = __float2bfloat16(dg);
+        *reinterpret_cast<bf16*>(WT + swz(s, t)) = __float2bfloat16(w);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(DG + swz(t, acc_col(tq, ix))) =
+          __floats2bfloat162_rn(dgv[0], dgv[1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      rm[u] += __shfl_xor_sync(0xffffffffu, rm[u], 1);
+      rm[u] += __shfl_xor_sync(0xffffffffu, rm[u], 2);
+      if (tq == 0) rowm[i0 + gq + 8 * u] = rm[u];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float v = cm[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gq == 0) colp[warp * 64 + 8 * (j >> 1) + 2 * tq + (j & 1)] = v;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();
+    // dxdt = dec o (B dh^T) + W^T dy: dx and ddt
+    float acc[32];
+    hopper::wgmma_fence();
+    hopper::mma64_kk(acc, Bt, DH, false);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int ix = 0; ix < 32; ++ix) acc[ix] *= dec[acc_row(i0, gq, ix)];
+    hopper::wgmma_fence();
+    hopper::mma64_kn(acc, WT, DY, true);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    {
+      bf16* dxb = g.dx + b * g.gxsb + h * g.gxsh + s0 * g.gxss;
+      float dd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int ix = 0; ix < 32; ix += 2) {
+        const int s = acc_row(i0, gq, ix), p = acc_col(tq, ix);
+        dd[(ix >> 1) & 1] += acc[ix] * hopper::tile_f32(X, s, p) +
+                             acc[ix + 1] * hopper::tile_f32(X, s, p + 1);
+        if (s < nr)
+          *reinterpret_cast<__nv_bfloat162*>(dxb + s * g.gxss + p) =
+              __floats2bfloat162_rn(acc[ix] * dtv[s], acc[ix + 1] * dtv[s]);
+      }
+      float* tdb = g.ddt + b * g.gtsb + h * g.gtsh;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        dd[u] += __shfl_xor_sync(0xffffffffu, dd[u], 1);
+        dd[u] += __shfl_xor_sync(0xffffffffu, dd[u], 2);
+        const int s = i0 + gq + 8 * u;
+        if (tq == 0 && s < nr) tdb[(s0 + s) * g.gtss] = dd[u];
+      }
+    }
+    // the states' terms: e^la o (dy h0) and (dt dec) o (x dh)
+    float tc[32], tb2[32];
+    hopper::wgmma_fence();
+    hopper::mma64_kn(tc, DY, H0, false);
+    hopper::mma64_kn(tb2, X, DH, false);
+    hopper::wgmma_commit();
+    float hd = 0.f;              // <dh, h0>
+    for (int e = tid; e < 2048; e += NT) {
+      const float2 u = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(DH + 4 * e));
+      const float2 w = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(H0 + 4 * e));
+      hd = fmaf(u.x, w.x, fmaf(u.y, w.y, hd));
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(tc);
+    hopper::fence_regs(tb2);
+    float cs[2] = {0.f, 0.f}, qs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ix = 0; ix < 32; ++ix) {
+      const int t = acc_row(i0, gq, ix), n = acc_col(tq, ix);
+      tc[ix] *= ela[t];
+      tb2[ix] *= dtv[t] * dec[t];
+      cs[(ix >> 1) & 1] += hopper::tile_f32(Ct, t, n) * tc[ix];
+      qs[(ix >> 1) & 1] += hopper::tile_f32(Bt, t, n) * tb2[ix];
+      dcs[ix] += tc[ix];
+      dbs[ix] += tb2[ix];
+    }
+    hopper::wgmma_fence();
+    hopper::mma64_kn(dcs, DG, Bt, true);
+    hopper::mma64_kn(dbs, DGT, Ct, true);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      cs[u] += __shfl_xor_sync(0xffffffffu, cs[u], 1);
+      cs[u] += __shfl_xor_sync(0xffffffffu, cs[u], 2);
+      qs[u] += __shfl_xor_sync(0xffffffffu, qs[u], 1);
+      qs[u] += __shfl_xor_sync(0xffffffffu, qs[u], 2);
+      if (tq == 0) {
+        cst[i0 + gq + 8 * u] = cs[u];
+        qv[i0 + gq + 8 * u] = qs[u];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
+    if (lane == 0) red[warp] = hd;
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dcs);
+    hopper::fence_regs(dbs);
+    __syncthreads();
+    // warp 0: dla, its reverse cumsum, da
+    if (warp == 0) {
+      float d[2], qsum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = 2 * lane + u;
+        const float cmr = colp[r] + colp[64 + r] + colp[128 + r] + colp[192 + r];
+        d[u] = rowm[r] - cmr + cst[r] - qv[r];
+        qsum += qv[r];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        qsum += __shfl_xor_sync(0xffffffffu, qsum, o);
+      if (lane == 31)
+        d[1] += eend * (red[0] + red[1] + red[2] + red[3]) + qsum;
+      float incl = d[0] + d[1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += t;
+      }
+      float excl = __shfl_down_sync(0xffffffffu, incl, 1);
+      if (lane == 31) excl = 0.f;
+      const float l1 = excl + d[1];
+      const float l0 = l1 + d[0];
+      float* dab = g.da + b * g.gasb + h * g.gash;
+      const int r0 = 2 * lane;
+      if (r0 < nr) dab[(s0 + r0) * g.gass] = l0 / (av[r0] + 1e-20f);
+      if (r0 + 1 < nr) dab[(s0 + r0 + 1) * g.gass] = l1 / (av[r0 + 1] + 1e-20f);
+    }
+    __syncthreads();             // this head's tiles and vectors are read
+  }
+  float* dbo = g.dbp + ((size_t)b * g.ngroup + grp) * g.S * 64;
+  float* dco = g.dcp + ((size_t)b * g.ngroup + grp) * g.S * 64;
+#pragma unroll
+  for (int ix = 0; ix < 32; ix += 2) {
+    const int s = acc_row(i0, gq, ix), n = acc_col(tq, ix);
+    if (s < nr) {
+      *reinterpret_cast<float2*>(dbo + (size_t)(s0 + s) * 64 + n) =
+          make_float2(dbs[ix], dbs[ix + 1]);
+      *reinterpret_cast<float2*>(dco + (size_t)(s0 + s) * 64 + n) =
+          make_float2(dcs[ix], dcs[ix + 1]);
+    }
+  }
+}
+
+}  // namespace tcb
+
 }  // namespace
 
 // strides: 29 int64 element strides, x (b, h, s), Bm (b, s), Cm (b, s),
@@ -635,3 +1119,50 @@ int launch(const Args& g, int B, int P, int N, TI* dbm, TI* dcm,
 
 SSD_BWD_ENTRY(mamba2_scan_bwd_f32, float)
 SSD_BWD_ENTRY(mamba2_scan_bwd_bf16, __nv_bfloat16)
+
+// bf16 x, B, C at P = N = 64: the tensor-core route's three launches.
+// Strides as mamba2_scan_bwd_f32's. Scratch, contiguous: hbuf and dhbuf
+// (B, NH, ceil(S/64), 64, 64) bf16; dbp and dcp (B, ceil(NH/4), S, 64)
+// f32.
+extern "C" int mamba2_scan_bwd_tc(const void* x, const void* bm,
+                                  const void* cm, const float* a,
+                                  const float* dt, const float* dy,
+                                  void* hbuf, void* dhbuf, float* dbp,
+                                  float* dcp, void* dx, void* dbm, void* dcm,
+                                  float* da, float* ddt, int B, int NH, int S,
+                                  int P, int N, const long long* st,
+                                  void* stream) {
+  namespace t = tcb;
+  using t::bf16;
+  if (P != 64 || N != 64 || B <= 0 || NH <= 0 || S <= 0 || B > 65535 ||
+      NH > 65535)
+    return (int)cudaErrorInvalidValue;
+  static bool granted = false;
+  if (!granted) {
+    int rc = hopper::grant_smem(t::ssd_bwd_state, t::SMEM_STATE);
+    if (!rc) rc = hopper::grant_smem(t::ssd_bwd_chunk, t::SMEM_CHUNK);
+    if (rc) return rc;
+    granted = true;
+  }
+  const int nch = (S + 63) / 64, ngroup = (NH + t::G - 1) / t::G;
+  cudaStream_t cs = (cudaStream_t)stream;
+  const t::Args g{static_cast<const bf16*>(x), static_cast<const bf16*>(bm),
+                  static_cast<const bf16*>(cm), a, dt, dy,
+                  static_cast<bf16*>(hbuf), static_cast<bf16*>(dhbuf), dbp,
+                  dcp, static_cast<bf16*>(dx), da, ddt,
+                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                  st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+                  st[15], st[16], st[17], st[18], st[23], st[24], st[25],
+                  st[26], st[27], st[28], NH, S, nch, ngroup};
+  t::ssd_bwd_state<<<dim3(NH, B, 2), t::NT, t::SMEM_STATE, cs>>>(g);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  t::ssd_bwd_chunk<<<dim3(nch, ngroup, B), t::NT, t::SMEM_CHUNK, cs>>>(g);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const long long total = (long long)B * S * 64;
+  ssd_bwd_reduce<bf16><<<(unsigned)((total + 255) / 256), 256, 0, cs>>>(
+      dbp, dcp, static_cast<bf16*>(dbm), static_cast<bf16*>(dcm), B, ngroup,
+      S, 64, st[19], st[20], st[21], st[22]);
+  return (int)cudaGetLastError();
+}

@@ -407,12 +407,7 @@ constexpr int OFF_BAR = OFF_GATES + 2 * 4 * CH * 4;
 constexpr int OFF_CNT = OFF_BAR + 9 * 8;
 constexpr int SMEM = OFF_CNT + 16 + 1024;  // + alignment
 
-// byte offset of element (r, k) of a tile in the 128-byte-swizzled
-// layout wgmma reads (hopper.cuh): 16-byte chunk k / 8 of row r at chunk
-// (k / 8) ^ (r % 8)
-__device__ __forceinline__ int swz(int r, int k) {
-  return r * 128 + ((((k >> 3) ^ (r & 7)) << 4) | ((k & 7) << 1));
-}
+using hopper::swz;
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(

@@ -48,14 +48,20 @@ dh1 carried back from the next chunk,
   term).
 
 ``mamba2_scan_bwd_plain`` is that recurrence in tensor ops (the CPU
-tests hold it against ``jax.vjp`` of the reference's oracle); the kernel
-computes the same, one block per (head, batch row): a forward sweep
-that stores h at each chunk start, then the reverse sweep with dh in
-shared memory, and dB, dC reduced over the heads by a second kernel
-(no atomics: repeated runs are bitwise equal). A ``meta`` tensor (the
-dry-run's, ``kernels/meta.py``) gets empty outputs of the kernel's
-shapes and reports ``scan_flops`` / ``scan_bwd_flops``' work, both
-directions through the same Function.
+tests hold it against ``jax.vjp`` of the reference's oracle). The kernel
+computes the same. bf16 at P = N = 64 (the model's training path) takes
+the tensor-core route: one launch carries h forward and dh in reverse
+over the chunks (bf16 at each chunk boundary), a chunk-parallel launch
+computes every other term for a group of ``TC_GROUP`` heads, summing dB
+and dC over the group on chip, and a last launch sums the groups; every
+product on ``wgmma`` with one bf16 operand. f32, and bf16 at the other
+P, N, take the CUDA-core kernel: one block per (head, batch row), each
+head's dB and dC summed by a second launch. Neither uses atomics:
+repeated runs are bitwise equal. Each route's scratch is allocated here
+(``_bwd_scratch``), also on a ``meta`` tensor (the dry-run's,
+``kernels/meta.py``), which gets empty outputs of the kernel's shapes
+and reports ``scan_flops`` / ``scan_bwd_flops``' work, both directions
+through the same Function.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from typing import Optional
 import torch
 
 from . import build, meta
+from .flash_attention import _tma_layout_ok
 
 DIMS = (16, 32, 64)     # the head dims P and state dims N the kernel takes
 CHUNK = 64              # the kernel's chunk rows
@@ -271,18 +278,51 @@ def _kernel(in_dtype: torch.dtype, out_dtype: torch.dtype):
     return _fns[(in_dtype, out_dtype)]
 
 
-def _bwd_kernel(in_dtype: torch.dtype):
+def _bwd_kernel(route: str):
+    """The backward's entry point: "tc" (bf16 at P = N = 64), "f32" or
+    "bf16" (the CUDA-core kernel)."""
     if not _bwd_fns:
         lib = build.load("mamba2_scan_bwd")
-        for ti, si in {torch.float32: "f32", torch.bfloat16: "bf16"}.items():
-            fn = getattr(lib, f"mamba2_scan_bwd_{si}")
+        for r in ("f32", "bf16"):
+            fn = getattr(lib, f"mamba2_scan_bwd_{r}")
             # x, Bm, Cm, a, dt, dy, hbuf, dbp, dcp, dx, dBm, dCm, da,
             # ddt, B, NH, S, P, N, strides, stream
             fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                            + [ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _bwd_fns[ti] = fn
-    return _bwd_fns[in_dtype]
+            _bwd_fns[r] = fn
+        fn = lib.mamba2_scan_bwd_tc
+        # x, Bm, Cm, a, dt, dy, hbuf, dhbuf, dbp, dcp, dx, dBm, dCm, da,
+        # ddt, B, NH, S, P, N, strides, stream
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fns["tc"] = fn
+    return _bwd_fns[route]
+
+
+TC_GROUP = 4            # heads a block of the tensor-core backward sums
+
+
+def _bwd_scratch(route: str, B: int, NH: int, S: int, P: int, N: int,
+                 device):
+    """The backward kernel's scratch, by route (the meta path allocates
+    the same, so the dry-run's peak follows the kernel). Tensor cores: h
+    at each chunk's start and dh at its end (bf16), dB and dC summed over
+    each group of ``TC_GROUP`` heads (f32). CUDA cores: h at each chunk
+    start, each head's dB and dC (f32)."""
+    nch = math.ceil(S / CHUNK)
+    f32 = dict(dtype=torch.float32, device=device)
+    if route == "tc":
+        ng = math.ceil(NH / TC_GROUP)
+        b16 = dict(dtype=torch.bfloat16, device=device)
+        return (torch.empty((B, NH, nch, P, N), **b16),
+                torch.empty((B, NH, nch, P, N), **b16),
+                torch.empty((B, ng, S, N), **f32),
+                torch.empty((B, ng, S, N), **f32))
+    return (torch.empty((B, NH, nch, P, N), **f32),
+            torch.empty((B, NH, S, N), **f32),
+            torch.empty((B, NH, S, N), **f32))
 
 
 def _forward(x, Bmat, Cmat, a, dt, chunk, out_dtype):
@@ -330,14 +370,34 @@ def mamba2_scan_bwd(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
         if dy.shape != x.shape or dy.device != x.device:
             raise ValueError(f"mamba2_scan_bwd: dy {tuple(dy.shape)} on "
                              f"{dy.device}, want {tuple(x.shape)}")
-    if dy.dtype != torch.float32 or dy.stride(-1) != 1:
-        dy = dy.float().contiguous()
+    route = ("tc" if x.dtype == torch.bfloat16 and P == N == 64
+             else "f32" if x.dtype == torch.float32 else "bf16")
+    grads = _bwd(x, Bmat, Cmat, a, dt, dy, route)
+    if x.device.type != "meta":
+        mamba2_scan_bwd.launches += 1
+    return grads
+
+
+def _bwd(x, Bmat, Cmat, a, dt, dy, route):
+    """Launch the backward by ``route`` (``_bwd_kernel``'s; the tools'
+    A/B also sends bf16 at P = N = 64 to the CUDA-core kernel this way)."""
+    B, NH, S, P = x.shape
+    N = Bmat.shape[-1]
+    if dy.dtype != torch.float32 or dy.stride(-1) != 1 or (
+            route == "tc" and x.device.type != "meta"
+            and (any(st % 4 for st in dy.stride()) or dy.data_ptr() % 16)):
+        dy = dy.float().contiguous()    # the tc route reads 16-byte pieces
+    if route == "tc" and x.device.type != "meta":
+        for t in (x, Bmat, Cmat):
+            if not _tma_layout_ok(t.shape, t.stride(), t.data_ptr(),
+                                  t.element_size()):
+                raise ValueError(
+                    "mamba2_scan_bwd: the bf16 kernel copies x, Bmat and Cmat "
+                    "in 16-byte pieces, which needs a 16-byte-aligned base "
+                    "and every outer stride a multiple of 16 bytes; got "
+                    f"strides {t.stride()} at address {t.data_ptr():#x}")
     grads = tuple(_like(t) for t in (x, Bmat, Cmat, a, dt))
-    # the kernel's scratch: h at each chunk start, each head's dB and dC
-    f32 = dict(dtype=torch.float32, device=x.device)
-    hbuf = torch.empty((B, NH, math.ceil(S / CHUNK), P, N), **f32)
-    dbp = torch.empty((B, NH, S, N), **f32)
-    dcp = torch.empty((B, NH, S, N), **f32)
+    scratch = _bwd_scratch(route, B, NH, S, P, N, x.device)
     if meta.counting():
         meta.record("mamba2_scan_bwd", scan_bwd_flops(B, NH, S, P, N),
                     meta.nbytes(x, Bmat, Cmat, a, dt, dy, *grads))
@@ -348,18 +408,15 @@ def mamba2_scan_bwd(x: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
         *x.stride()[:3], *Bmat.stride()[:2], *Cmat.stride()[:2],
         *a.stride(), *dt.stride(), *dy.stride()[:3], *dx.stride()[:3],
         *dB.stride()[:2], *dC.stride()[:2], *da.stride(), *ddt.stride())
-    fn = _bwd_kernel(x.dtype)
+    fn = _bwd_kernel(route)
+    ptrs = [t.data_ptr() for t in (x, Bmat, Cmat, a, dt, dy, *scratch, dx,
+                                   dB, dC, da, ddt)]
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
-                a.data_ptr(), dt.data_ptr(), dy.data_ptr(), hbuf.data_ptr(),
-                dbp.data_ptr(), dcp.data_ptr(), dx.data_ptr(),
-                dB.data_ptr(), dC.data_ptr(), da.data_ptr(), ddt.data_ptr(),
-                B, NH, S, P, N, ctypes.addressof(strides),
+        rc = fn(*ptrs, B, NH, S, P, N, ctypes.addressof(strides),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: "
                            f"CUDA error {rc}")
-    mamba2_scan_bwd.launches += 1
     return grads
 
 

@@ -59,16 +59,21 @@ exp(lf_end - lf_s + logi_s), g_t = exp(lf_t - m_t), E = exp(logD - m)):
   dden (q·n0)``, ``dr = k·(dC v) + k·dn``).
 
 ``mlstm_chunkwise_bwd_plain`` is that recurrence in tensor ops (the CPU
-tests hold it against ``jax.vjp`` of the reference's oracle); the kernel
-computes the same, one block per (64 value columns, head, batch row), as
-the forward: a forward sweep that stores C (its columns) and n at each
-chunk start, a pre-pass for δ, the reverse sweep with the block's dC
-columns in shared memory, dv complete in its block, and dq, dk, dlogi
-and dlogf, sums over the column blocks, reduced by a last kernel (no
-atomics: repeated runs are bitwise equal). A ``meta`` tensor (the
-dry-run's, ``kernels/meta.py``) gets empty outputs of the kernel's
-shapes and reports ``mlstm_cost`` / ``mlstm_bwd_cost``'s work, both
-directions through the same Function.
+tests hold it against ``jax.vjp`` of the reference's oracle). The kernel
+computes the same. bf16 at hd 384 (the model's training path) takes the
+tensor-core route, chunk-parallel: a state pass forward over the chunks
+stores C0 (bf16) and n0 at each chunk's start, a chunk-parallel launch
+the chunk-local terms (W, d, dden, dnum = dy / d, dS, M's sums), a state
+pass in reverse dC and dn at each chunk's end, and two chunk-parallel
+launches dq, dk and then dv with the gates' gradients, every product on
+``wgmma`` with one bf16 operand. f32, and bf16 at hd 32 and 64, take the
+CUDA-core kernel: one block per (64 value columns, head, batch row),
+the dq, dk, dlogi and dlogf parts of the column blocks reduced by a
+last launch. Neither uses atomics: repeated runs are bitwise equal.
+Each route's scratch is allocated here (``_bwd_scratch``), also on a
+``meta`` tensor (the dry-run's, ``kernels/meta.py``), which gets empty
+outputs of the kernel's shapes and reports ``mlstm_cost`` /
+``mlstm_bwd_cost``'s work, both directions through the same Function.
 """
 from __future__ import annotations
 
@@ -299,19 +304,58 @@ def _kernel(in_dtype: torch.dtype, out_dtype: torch.dtype):
     return _fns[(in_dtype, out_dtype)]
 
 
-def _bwd_kernel(in_dtype: torch.dtype):
+def _bwd_kernel(route: str):
+    """The backward's entry point: "tc" (bf16 at hd 384), "f32" or
+    "bf16" (the CUDA-core kernel)."""
     if not _bwd_fns:
         lib = build.load("mlstm_chunkwise_bwd")
-        for ti, si in {torch.float32: "f32", torch.bfloat16: "bf16"}.items():
-            fn = getattr(lib, f"mlstm_chunkwise_bwd_{si}")
+        for r in ("f32", "bf16"):
+            fn = getattr(lib, f"mlstm_chunkwise_bwd_{r}")
             # q, k, v, logi, logf, y, dy, delta, cbuf, nbuf, dqp, dkp,
             # dip, dfp, dq, dk, dv, dlogi, dlogf, B, NH, S, hd, strides,
             # stream
             fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _bwd_fns[ti] = fn
-    return _bwd_fns[in_dtype]
+            _bwd_fns[r] = fn
+        fn = lib.mlstm_chunkwise_bwd_tc
+        # q, k, v, logi, logf, y, dy, c0, dc, n0, dn, dnum, tiles, rv, cv,
+        # dq, dk, dv, dlogi, dlogf, B, NH, S, hd, strides, stream
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fns["tc"] = fn
+    return _bwd_fns[route]
+
+
+def _bwd_scratch(route: str, B: int, NH: int, S: int, hd: int, device):
+    """The backward kernel's scratch, by route (the meta path allocates
+    the same, so the dry-run's peak follows the kernel). Tensor cores:
+    C0 and dC at each chunk's start and end (bf16, rows key dims), n0 and
+    dn (f32), dnum = dy / d (bf16), each chunk's dS, dSᵀ and Wᵀ tiles
+    (bf16), six f32 vectors a row and two a chunk. CUDA cores: δ, C and
+    n at each chunk start, the column blocks' parts of dq, dk, dlogi and
+    dlogf (f32)."""
+    nch = math.ceil(S / CHUNK)
+    f32 = dict(dtype=torch.float32, device=device)
+    if route == "tc":
+        b16 = dict(dtype=torch.bfloat16, device=device)
+        return (torch.empty((B, NH, nch, hd, hd), **b16),
+                torch.empty((B, NH, nch, hd, hd), **b16),
+                torch.empty((B, NH, nch, hd), **f32),
+                torch.empty((B, NH, nch, hd), **f32),
+                torch.empty((B, NH, S, hd), **b16),
+                torch.empty((B, NH, nch, 3, CHUNK, CHUNK), **b16),
+                torch.empty((B, NH, S, 6), **f32),
+                torch.empty((B, NH, nch, 2), **f32))
+    ncb = max(1, hd // VT)
+    return (torch.empty((B, NH, S), **f32),
+            torch.empty((B, NH, nch, hd, hd), **f32),
+            torch.empty((B, NH, ncb, nch, hd), **f32),
+            torch.empty((B, NH, ncb, S, hd), **f32),
+            torch.empty((B, NH, ncb, S, hd), **f32),
+            torch.empty((B, NH, ncb, S), **f32),
+            torch.empty((B, NH, ncb, S), **f32))
 
 
 def _forward(q, k, v, logi, logf, out_dtype):
@@ -370,20 +414,33 @@ def mlstm_chunkwise_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if t is None or t.shape != q.shape or t.device != q.device:
                 raise ValueError(f"mlstm_chunkwise_bwd: {name} must be "
                                  f"{tuple(q.shape)} on {q.device}")
+    route = ("tc" if q.dtype == torch.bfloat16 and hd == TC_DIM
+             else "f32" if q.dtype == torch.float32 else "bf16")
+    grads = _bwd(q, k, v, logi, logf, y, dy, route)
+    if q.device.type != "meta":
+        mlstm_chunkwise_bwd.launches += 1
+    return grads
+
+
+def _bwd(q, k, v, logi, logf, y, dy, route):
+    """Launch the backward by ``route`` (``_bwd_kernel``'s; the tools'
+    A/B also sends bf16 at hd 384 to the CUDA-core kernel this way)."""
+    B, NH, S, hd = q.shape
     y, dy = ((t if t.dtype == torch.float32 and t.stride(-1) == 1
               else t.float().contiguous()) for t in (y, dy))
+    if route == "tc" and any(st % 2 for st in dy.stride()):
+        dy = dy.contiguous()      # read two floats at a time
     grads = tuple(_like(t) for t in (q, k, v, logi, logf))
-    # the kernel's scratch: δ, C and n at each chunk start, the column
-    # blocks' parts of dq, dk, dlogi and dlogf
-    nch, ncb = math.ceil(S / CHUNK), max(1, hd // VT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, NH, S), **f32)
-    cbuf = torch.empty((B, NH, nch, hd, hd), **f32)
-    nbuf = torch.empty((B, NH, ncb, nch, hd), **f32)
-    dqp = torch.empty((B, NH, ncb, S, hd), **f32)
-    dkp = torch.empty((B, NH, ncb, S, hd), **f32)
-    dip = torch.empty((B, NH, ncb, S), **f32)
-    dfp = torch.empty((B, NH, ncb, S), **f32)
+    if route == "tc" and q.device.type != "meta":
+        for t in (q, k, v):
+            if not _tma_layout_ok(t.shape, t.stride(), t.data_ptr(),
+                                  t.element_size()):
+                raise ValueError(
+                    "mlstm_chunkwise_bwd: the bf16 kernel copies q, k and v "
+                    "in 16-byte pieces, which needs a 16-byte-aligned base "
+                    "and every outer stride a multiple of 16 bytes; got "
+                    f"strides {t.stride()} at address {t.data_ptr():#x}")
+    scratch = _bwd_scratch(route, B, NH, S, hd, q.device)
     if meta.counting():
         nb, flops = mlstm_bwd_cost(B, NH, S, hd, q.element_size(), 4)
         meta.record("mlstm_chunkwise_bwd", flops, nb)
@@ -394,20 +451,15 @@ def mlstm_chunkwise_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *logi.stride(),
         *logf.stride(), *y.stride()[:3], *dy.stride()[:3], *dq.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3], *dli.stride(), *dlf.stride())
-    fn = _bwd_kernel(q.dtype)
+    fn = _bwd_kernel(route)
+    ptrs = [t.data_ptr() for t in (q, k, v, logi, logf, y, dy, *scratch,
+                                   dq, dk, dv, dli, dlf)]
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
-                logf.data_ptr(), y.data_ptr(), dy.data_ptr(),
-                delta.data_ptr(), cbuf.data_ptr(), nbuf.data_ptr(),
-                dqp.data_ptr(), dkp.data_ptr(), dip.data_ptr(),
-                dfp.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                dli.data_ptr(), dlf.data_ptr(), B, NH, S, hd,
-                ctypes.addressof(strides),
+        rc = fn(*ptrs, B, NH, S, hd, ctypes.addressof(strides),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mlstm_chunkwise_bwd kernel launch failed: "
                            f"CUDA error {rc}")
-    mlstm_chunkwise_bwd.launches += 1
     return grads
 
 

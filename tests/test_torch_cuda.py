@@ -1216,6 +1216,7 @@ SCAN_BWD_CASES = [
     (2, 3, 200, 16, 32), (1, 4, 128, 32, 16), (2, 2, 130, 64, 64),
     (1, 2, 40, 64, 64),                 # S < 64
     (1, 3, 1, 16, 64),                  # one row
+    (1, 112, 4096, 64, 64),             # the hybrid train path's rank
 ]
 
 
@@ -1243,6 +1244,7 @@ MLSTM_BWD_CASES = [
     (1, 2, 1, 64, 0.0),                 # one row
     (2, 2, 150, 64, -1.0),              # negative logi: the floor binds on
                                         # some rows, not on others
+    (2, 4, 1024, 384, 0.0),             # the xLSTM train path's rank
 ]
 
 

@@ -244,6 +244,58 @@ def test_meta_rules_run_forward_and_backward():
     assert MS.mamba2_scan_bwd.launches == MK.mlstm_chunkwise_bwd.launches == 0
 
 
+def test_meta_rules_allocate_the_kernels_scratch(monkeypatch):
+    """On ``meta`` tensors each backward allocates its route's scratch, as
+    the kernel's wrapper does on the card (so the dry-run's peak follows
+    the kernel): bf16 at the models' widths (scan P = N = 64, mLSTM hd
+    384) the tensor-core route's bf16 states and its small f32 parts, f32
+    the CUDA-core route's f32 states; the recorded work is the same on
+    both routes."""
+    seen = []
+    for mod in (MS, MK):
+        real = mod._bwd_scratch
+        monkeypatch.setattr(mod, "_bwd_scratch", lambda route, *a, _r=real:
+                            seen.append((route, _r(route, *a))) or seen[-1][1])
+    B, NH, S = 2, 9, 100
+    nch = 2                                   # 64-row chunks
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.empty((B, NH, S, 64), device="meta", dtype=dtype,
+                        requires_grad=True)
+        bc = torch.empty((B, S, 64), device="meta", dtype=dtype,
+                         requires_grad=True)
+        ad = torch.empty((B, NH, S), device="meta", requires_grad=True)
+        with meta.count_work() as work:
+            MS.mamba2_scan(x, bc, bc, ad, ad,
+                           out_dtype=torch.float32).sum().backward()
+        assert work["mamba2_scan_bwd"]["flops"] == MS.scan_bwd_flops(
+            B, NH, S, 64, 64)
+        qkv = torch.empty((B, NH, S, 384), device="meta", dtype=dtype,
+                          requires_grad=True)
+        gt = torch.empty((B, NH, S), device="meta", requires_grad=True)
+        with meta.count_work() as work:
+            MK.mlstm_chunkwise(qkv, qkv, qkv, gt, gt,
+                               out_dtype=torch.float32).sum().backward()
+        assert work["mlstm_chunkwise_bwd"]["flops"] == MK.mlstm_bwd_cost(
+            B, NH, S, 384, dtype.itemsize)[1]
+    shapes = [(route, [(tuple(t.shape), t.dtype) for t in ts])
+              for route, ts in seen]
+    b16, f32 = torch.bfloat16, torch.float32
+    ng = -(-NH // MS.TC_GROUP)
+    assert shapes == [
+        ("tc", [((B, NH, nch, 64, 64), b16)] * 2
+         + [((B, ng, S, 64), f32)] * 2),
+        ("tc", [((B, NH, nch, 384, 384), b16)] * 2
+         + [((B, NH, nch, 384), f32)] * 2 + [((B, NH, S, 384), b16),
+                                             ((B, NH, nch, 3, 64, 64), b16),
+                                             ((B, NH, S, 6), f32),
+                                             ((B, NH, nch, 2), f32)]),
+        ("f32", [((B, NH, nch, 64, 64), f32), ((B, NH, S, 64), f32),
+                 ((B, NH, S, 64), f32)]),
+        ("f32", [((B, NH, S), f32), ((B, NH, nch, 384, 384), f32),
+                 ((B, NH, 6, nch, 384), f32)] + [((B, NH, 6, S, 384), f32)] * 2
+         + [((B, NH, 6, S), f32)] * 2)]
+
+
 def test_meta_scan_backward_on_dtensors_with_heads_sharded():
     """On the dry-run's DTensors with batch and heads sharded, the scan's
     gradients keep x's placements, and Bmat's and Cmat's (no head dim)
