@@ -35,13 +35,18 @@ against faults planted in the bf16 kernels' sources (``planted``):
    and both kernels' launch counters, zeroed just before, must be > 0;
 5. train parity: the flash-attention backward kernel against autograd of
    the plain version at B=3, H=9, Kh=3, hd=64, S in {1, 7, 100, 1024},
-   causal, sliding window on and off, in bf16 (2e-2) and f32 (1e-4),
-   each relative to max(1, max|ref|); ``bucket_combine`` against its
-   plain version over add/copy with mixed gates at n=6, bitwise, on
-   group views and on the whole team-6 buffer (6 x 2055 x 65536 f32, the
-   main path's shape); then timing of both at the train cell's shapes
-   beside their plain versions and a library yardstick (SDPA's autograd
-   backward; ``torch.addcmul``);
+   causal, sliding window on and off, and at B=1 at hd 112 (H=Kh=32)
+   and hd 128 (H=16, Kh=4), S 1024 and a ragged S with a window
+   (``BWD_HDP128``), in bf16 (2e-2) and f32 (1e-4), each relative to
+   max(1, max|ref|); ``bucket_combine`` against its plain version over
+   add/copy with mixed gates at n=6, bitwise, on group views and on the
+   whole team-6 buffer (6 x 2055 x 65536 f32, the main path's shape);
+   then timing of both at the train cell's shapes beside their plain
+   versions and a library yardstick (SDPA's autograd backward;
+   ``torch.addcmul``), and of the backward at the hybrid train path's
+   (B=1, H=Kh=32, S=4096, hd 112, bf16: held against the plain gradient
+   and bitwise between two runs first; ``fa_dkdv_wide``'s registers and
+   spills from the build, which fail the phase if it spills);
 6. train reference: reduced smollm in f32, one ``GradSyncProgram`` step
    per schedule kind at n=6 with one departed worker, on the card and on
    the CPU from the same parameters: loss and updated parameters agree
@@ -165,8 +170,10 @@ against faults planted in the bf16 kernels' sources (``planted``):
    at hd 128 over S 4608 with mixtral's window of 4096, at g = 7
    (llava), whisper's non-causal cross-attention (Sq 448, Sk 1500) and
    encoder (S 1500); the decode over mixtral's 4096-slot ring (holes,
-   g = 4) and over whisper's 1500 cross keys (all valid, g = 1); each
-   timed beside its plain version, SDPA and its bound;
+   g = 4), over whisper's 1500 cross keys (all valid, g = 1) and over
+   llava's 1152-slot cache (the first 1100 valid, g = 7); each timed
+   beside its plain version, SDPA and its bound (bf16 groups of 4 to 16
+   heads run the tensor-core decode ``flash_decode_kernel_mma``);
 22. mixtral serve: mixtral-8x7b at full width, 8 of 32 layers, bf16,
    through ``ServeEngine`` (4 slots, a 4096-slot ring): 8 prompts of
    512..4000 tokens with 64 new tokens and one of 4000 with 160, all
@@ -306,7 +313,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the attention kernels' CUDA functions in bf16 (the tensor-core kernels;
 # f32 keeps attn_kernel, bwd_dkdv and bwd_dq on the CUDA cores)
 ATTN_FWD_BF16 = ("fa_fwd_wgmma",)
-ATTN_BWD_BF16 = ("bwd_dot", "fa_dkdv_wgmma", "fa_dq_wgmma")
+ATTN_BWD_BF16 = ("bwd_dot", "fa_dkdv_", "fa_dq_")
 # flash_decode's one CUDA function (both dtypes); the SSD scan's with bf16
 # inputs (the tensor-core kernel; f32 inputs keep ssd_kernel)
 DECODE = ("flash_decode_kernel",)
@@ -772,8 +779,8 @@ MLSTM_BWD_TC = ("mlstm_bwd_fstate", "mlstm_bwd_local", "mlstm_bwd_rstate",
                 "mlstm_bwd_dqdk", "mlstm_bwd_dv")
 # the port's own kernels, by the names of their CUDA functions
 PORT_KERNELS = {"attention": ("attn_kernel", "fa_fwd_wgmma", "bwd_dot",
-                              "bwd_dkdv", "bwd_dq", "fa_dkdv_wgmma",
-                              "fa_dq_wgmma") + DECODE,
+                              "bwd_dkdv", "bwd_dq", "fa_dkdv_",
+                              "fa_dq_") + DECODE,
                 "ssd scan": ("ssd_kernel",) + SCAN_BF16,
                 "mlstm": ("mlstm_kernel",) + MLSTM_BF16,
                 "ssd scan bwd": SCAN_BWD_TC + ("ssd_bwd_kernel",),
@@ -830,6 +837,96 @@ def profile_work(work: dict, fname: str) -> None:
 TRAIN_CHURN = "join@8,join@8,fail@18,leave@18,leave@18"   # 4 -> 6 -> 3
 
 
+# (H, Kh, hd, S, window) of the HDP 128 backward parity cases: hd 112 at
+# g 1 (zamba2's shared block), hd 128 at g 4; B = 1
+BWD_HDP128 = ((32, 32, 112, 1024, None), (32, 32, 112, 777, 300),
+              (16, 4, 128, 1024, None), (16, 4, 128, 333, 100))
+
+
+def _bwd_parity(B, H, Kh, hd, S, win, dtype, gen) -> float:
+    """The attention backward through autograd against autograd of the
+    plain version, causal: the largest |error| over dq, dk, dv, each
+    held to ``TOL`` relative to max(1, max|ref|), printed."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    name = str(dtype).split(".")[1]
+    q, k, v = _attn_inputs(B, S, dtype, gen, H=H, Kh=Kh, hd=hd)
+    do = torch.randn((B, S, H, hd), generator=gen,
+                     device="cuda").to(dtype).transpose(1, 2)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = FA.flash_attention(*leaves, causal=True, sliding_window=win)
+    got = torch.autograd.grad(out, leaves, do)
+    want = FA.attention_bwd_ref(q, k, v, do, causal=True, sliding_window=win)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g, w in zip(got, want):
+        e = (g.float() - w.float()).abs().max().item()
+        lim = TOL[name] * max(1.0, w.float().abs().max().item())
+        if not e <= lim:
+            fail(f"flash_attention_bwd {name} B={B} H={H} Kh={Kh} hd={hd} "
+                 f"S={S} window={win} err {e} > {lim}")
+        worst = max(worst, e)
+    print(f"parity flash_attention_bwd {name} B={B} H={H} Kh={Kh} S={S} "
+          f"hd={hd} window={win}: max_abs_err={worst:.3e}")
+    return worst
+
+
+def _bwd_hybrid_row(gen, err: float) -> dict:
+    """The attention backward at the hybrid train path's shape (a rank's
+    B=1 x 4096 tokens through zamba2's shared block: H=Kh=32, hd 112,
+    bf16, causal): held against the plain gradient, two runs bitwise
+    equal, then its three launches timed through the wrapper the
+    autograd Function calls, beside the plain version, SDPA's autograd
+    backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, Kh, hd = 1, 4096, 32, 32, 112
+    err = max(err, _bwd_parity(B, H, Kh, hd, S, None, torch.bfloat16, gen))
+    q, k, v = _attn_inputs(B, S, torch.bfloat16, gen, H=H, Kh=Kh, hd=hd)
+    do = torch.randn((B, S, H, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16).transpose(1, 2)
+    out, lse = FA._forward(q, k, v, True, None, want_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    again = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("flash_attention_bwd at the hybrid train shape: two runs "
+             "differ")
+    print("parity flash_attention_bwd at the hybrid train shape: two runs "
+          "bitwise equal")
+    del got, again
+    ms, host = time_ms(lambda: FA.flash_attention_bwd(q, k, v, out, do, lse),
+                       kernels=ATTN_BWD_BF16)
+    plain, _ = time_ms(lambda: FA.attention_bwd_ref(q, k, v, do), iters=3)
+    sq = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    so = F.scaled_dot_product_attention(*sq, is_causal=True)
+    lib, _ = time_ms(lambda: torch.autograd.grad(so, sq, do,
+                                                 retain_graph=True))
+    flops = FA.attention_bwd_flops(B, H, S, S, hd, True, None)
+    nbytes = (2 * (3 * B * S * H * hd + 2 * B * S * Kh * hd) + 4 * B * H * S
+              + 2 * (B * S * H * hd + 2 * B * S * Kh * hd))
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    wide = {d: ptxas_regs("flash_attention_bwd", f"fa_dkdv_wideILi{d}E")
+            for d in (112, 128)}
+    print(f"ptxas fa_dkdv_wide<112>: {wide[112]}, <128>: {wide[128]}")
+    for d, regs in wide.items():
+        # its design's claim: the 64 x 128 dK and dV fit in registers
+        if not regs.endswith(" 0 bytes spilled") and regs != "not measured":
+            fail(f"fa_dkdv_wide<{d}> spills: {regs}")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73 (backward; "
+                    "the reference differentiates "
+                    "src/repro/models/attention.py:85)",
+        "shape": f"B={B} H={H} Kh={Kh} S={S} hd={hd} bf16 causal (the "
+                 f"hybrid train path's rank)",
+        "max_abs_err": err, "ms": ms, "host_ms": host, "plain_ms": plain,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib, "tflops": flops / ms / 1e9}
+
+
 def phase_train_parity():
     """The training kernels against their plain versions, then timed at
     the train cell's shapes; returns their timing rows."""
@@ -841,35 +938,22 @@ def phase_train_parity():
     from repro_torch.models.registry import get_api, get_config
 
     gen = torch.Generator("cuda").manual_seed(1)
-    err = {"flash_attention_bwd": 0.0}
+    err = {"flash_attention_bwd": 0.0, "hdp128": 0.0}
     H, Kh, hd = 9, 3, 64
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
         for S in (1, 7, 100, 1024):
             for win in (None, 5 if S < 1024 else 200):
-                q, k, v = _attn_inputs(3, S, dtype, gen)
-                do = torch.randn((3, S, H, hd), generator=gen,
-                                 device="cuda").to(dtype).transpose(1, 2)
-                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-                out = FA.flash_attention(*leaves, causal=True,
-                                         sliding_window=win)
-                got = torch.autograd.grad(out, leaves, do)
-                want = FA.attention_bwd_ref(q, k, v, do, causal=True,
-                                            sliding_window=win)
-                torch.cuda.synchronize()
-                worst = 0.0
-                for g, w in zip(got, want):
-                    e = (g.float() - w.float()).abs().max().item()
-                    lim = TOL[name] * max(1.0, w.float().abs().max().item())
-                    if not e <= lim:
-                        fail(f"flash_attention_bwd {name} S={S} window={win}"
-                             f" err {e} > {lim}")
-                    worst = max(worst, e)
-                print(f"parity flash_attention_bwd {name} B=3 S={S} "
-                      f"window={win}: max_abs_err={worst:.3e}")
+                worst = _bwd_parity(3, H, Kh, hd, S, win, dtype, gen)
                 if dtype == torch.bfloat16:
                     err["flash_attention_bwd"] = max(
                         err["flash_attention_bwd"], worst)
+    # the HDP 128 passes: zamba2's shared block (hd 112, g 1, the hybrid
+    # train path) and hd 128 at g 4, each with a window and a ragged tail
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Khq, hdq, S, win in BWD_HDP128:
+            worst = _bwd_parity(1, Hq, Khq, hdq, S, win, dtype, gen)
+            if dtype == torch.bfloat16:
+                err["hdp128"] = max(err["hdp128"], worst)
     gate = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.int32, device="cuda")
     whole = torch.randn((6, 24, 65536), generator=gen, device="cuda")
     y = torch.randn((6, 8, 65536), generator=gen, device="cuda")
@@ -918,6 +1002,7 @@ def phase_train_parity():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib, "tflops": flops / ms / 1e9})
     del q, k, v, do, leaves, out, sq, so
+    rows.append(_bwd_hybrid_row(gen, err["hdp128"]))
 
     # the team-6 epoch's whole stacked buffer, the main path's shape:
     # bitwise against the plain version for both ops, then one add round
@@ -3316,13 +3401,17 @@ def _fam_attn_inputs(gen, B, H, Kh, Sq, Sk, hd, dtype):
 
 def _fam_decode_inputs(gen, B, H, Kh, W, hd, L, mask, dtype):
     """q, the L layers' (k, v) cache views and the validity mask: all
-    valid, or a ring with random holes."""
+    valid, a ring with random holes, or (an int) the first ``mask``
+    slots valid."""
     import torch
     q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((L, B, W, Kh, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((L, B, W, Kh, hd), generator=gen, device="cuda").to(dtype)
     if mask == "all":
         valid = torch.ones((B, W), dtype=torch.int32, device="cuda")
+    elif isinstance(mask, int):
+        valid = (torch.arange(W, device="cuda") < mask).to(torch.int32)
+        valid = valid.expand(B, W).contiguous()
     else:
         valid = torch.randint(0, 2, (B, W), generator=gen, device="cuda",
                               dtype=torch.int32)
@@ -3364,6 +3453,7 @@ FAM_ATTN = (
 FAM_DECODE = (
     ("mixtral ring", 4, 32, 8, 4096, 128, 8, "ring"),
     ("whisper cross", 4, 12, 12, 1500, 64, 12, "all"),
+    ("llava g=7", 2, 56, 8, 1152, 128, 16, 1100),
 )
 
 
@@ -3404,7 +3494,9 @@ def phase_families_parity():
                                                  mask, dtype)
             err, row = _fam_errors("flash_decode", (q, *views[0], valid))
             print(f"parity flash_decode {name} {label} (B={B} H={H} Kh={Kh}"
-                  f" W={W} hd={hd}, {mask}): max_abs_err={err:.3e}, largest "
+                  f" W={W} hd={hd}, "
+                  f"{mask if isinstance(mask, str) else f'first {mask} valid'}"
+                  f"): max_abs_err={err:.3e}, largest "
                   f"row error {row:.3e}")
             if not _fam_held(name, err, row):
                 fail(f"flash_decode {name} {label}: err {err}, row {row}")

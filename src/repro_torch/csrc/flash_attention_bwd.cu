@@ -24,7 +24,7 @@
 // Three launches, no atomics, deterministic (two runs are bitwise
 // equal):
 //  1. bwd_dot: D = rowsum(dO * O), one warp per (b, h, row).
-//  2. dK / dV: one CTA per (64-key tile, KV head, batch row), key tiles
+//  2. dK / dV: one CTA per (key tile, KV head, batch row), key tiles
 //     heaviest first (under the causal mask the first key tile sees every
 //     q tile). It loops over the g query heads of its group and over the
 //     q tiles that can see the key tile, accumulating dK and dV in f32
@@ -34,36 +34,68 @@
 // The second pass recomputes S and dP, so the backward executes 7
 // products where the bound counts 5: the price of staying atomic-free.
 //
-// bf16 (the training path): fa_dkdv_wgmma and fa_dq_wgmma, products on
-// the tensor cores (wgmma), tiles of 64 rows brought by TMA, in the
-// 128-byte-swizzled layout of hopper.cuh. Both grids are 1-D with the
-// tile index slowest and the heaviest tiles first.
-//  - dK / dV pass: 288 threads. A producer warp loads K and V once, then
-//    streams (head in group, q tile) pairs of Q and dO through a 4-stage
-//    ring with full / empty mbarriers, and writes each pair's 64 LSE and
-//    D values beside them in shared memory. Two consumer warpgroups take
+// bf16 (the training path): products on the tensor cores (wgmma), tiles
+// of 64 rows brought by TMA, in the 128-byte-swizzled layout of
+// hopper.cuh. The grids are 1-D with the tile index slowest and the
+// heaviest tiles first. Every pass takes the products with M = 64 rows of
+// its own tile: S^T = K Q^T and dP^T = V dO^T (A = K or V, B = Q or dO,
+// K-major); P^T = exp(S^T * scale - LSE) and dS^T = P^T o (dP^T - D) in
+// registers, LSE and D read by column (a q row); dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T rounded to bf16 as the register-A operand and
+// dO or Q the MN-major B operand.
+//  - dK / dV at HDP 128 (hd 112 and 128: zamba2's shared block on the
+//    hybrid train path, B=1, H=Kh=32, S=4096 a rank): fa_dkdv_wide, one
+//    CTA per 128-key tile, 256 threads, two consumer warpgroups and no
+//    producer warp. Warpgroup w keeps the whole 64 x 128 dK and dV of key
+//    rows 64 w .. 64 w + 63 in registers; both take every (head, q tile)
+//    pair from one ring stage, so each Q and dO tile streamed from L2
+//    serves 128 key rows. That stream bounds the pass: a 64-key tile's
+//    feed alone (TMA and the ring, no arithmetic) took 0.6 ms of the
+//    train shape's pass, and halving it moved the pass from 1.4-1.6 ms
+//    to 0.83 (tools/attn_variants.py). Eight warps leave a thread 255
+//    registers: ptxas gives the kernel 218, no spill. At nine or twelve
+//    warps (a producer warp or warpgroup beside the consumers) a quarter
+//    of the register file holds three warps, which caps a thread at 168,
+//    and ptxas does not allocate past that for code after setmaxnreg:
+//    the register split of the forward (a producer warpgroup at
+//    setmaxnreg 24, consumers at 240) spilled 2572 bytes here, and the
+//    64-key fa_dkdv_wgmma at 288 threads 964. Thread 0 issues the TMA
+//    loads, a ring of 4 (Q, dO) stages: stage (n - 1) % 4, once both
+//    warpgroups freed it (full / empty mbarriers), takes pair n + 3. Each
+//    warpgroup stages its pairs' LSE and D through shared memory, loaded
+//    a pair ahead into a register (one named barrier a pair). Warpgroup 1
+//    starts once warpgroup 0 has issued its first products, which keeps
+//    their exp and dS phases apart (and, with the fourth stage, took
+//    ~7% off the pass). Shared memory: K and V of 128 rows (64 KB) and
+//    the ring (128 KB). tools/attn_variants.py builds the routes that
+//    lost from this source: fa_dkdv_wgmma at 384 threads with the
+//    register split, and fa_dkdv_split (tools/fa_dkdv_split.cuh), which
+//    splits each pair by columns instead: warpgroup 0 P^T, warpgroup 1
+//    dS^T, handed over as bf16 tiles in shared memory, each warpgroup dK
+//    and dV of one 64-column panel (158 registers, no spill, but every
+//    second product reads both operands from shared memory and the
+//    warpgroups wait on each other a pair).
+//  - dK / dV at HDP 64 (hd 16 to 64): fa_dkdv_wgmma, one CTA per 64-key
+//    tile, 288 threads. A producer warp loads K and V once, then streams
+//    the pairs of Q and dO through a 4-stage ring with full / empty
+//    mbarriers, and writes each pair's 64 LSE and D values beside them
+//    in shared memory (produce_pairs). Two consumer warpgroups take
 //    alternate pairs, both for the tile's 64 key rows, and sum their dK
-//    and dV through shared memory at the end, in a fixed order. The
-//    products, all with M = the 64 key rows:
-//    S^T = K Q^T and dP^T = V dO^T (A = K or V, B = Q or dO, K-major);
-//    P^T = exp(S^T * scale - LSE) and dS^T = P^T o (dP^T - D) in
-//    registers, LSE and D read by column (a q row); dV += P^T dO and
-//    dK += dS^T Q with P^T and dS^T rounded to bf16 as the register-A
-//    operand and dO or Q the MN-major B operand.
-//  - dQ pass: 160 threads, one consumer warpgroup and a producer warp
-//    that loads Q and dO once and streams K and V through a 2-stage ring;
-//    S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K with K the
-//    MN-major B operand.
+//    and dV through shared memory at the end, in a fixed order. 168
+//    registers, no spill: LSE and D come from shared memory, not
+//    registers.
+//  - dQ pass: fa_dq_wgmma, 160 threads, one consumer warpgroup and a
+//    producer warp that loads Q and dO once and streams K and V through a
+//    2-stage ring; S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K
+//    with K the MN-major B operand. 133 registers (hd <= 64) and 165
+//    (hd 112 / 128), no spill; two CTAs an SM. (A 128-query form
+//    mirroring fa_dkdv_wide, each K and V tile serving two warpgroups,
+//    measured no faster at the train shape: this pass is not bound by
+//    its feed.)
 //  - hd 112 is loaded as 128 and hd 16 / 32 as 64 (TMA fills the extra
 //    columns with zeros); the extra output columns are not stored.
 //  - P and dS are rounded to bf16 before the second products, where the
 //    f32 kernel keeps them in f32; the tolerances are the f32 kernel's.
-//  - Registers (ptxas): the dK / dV pass 168 at hd <= 64, no spill; at
-//    hd 112 / 128 (no main path: zamba2 is served, not trained) its two
-//    128-column accumulators spill 964 bytes. The dQ pass 133 (hd <= 64)
-//    and 165 (hd 112 / 128), no spill. The pass fits 168 registers at
-//    hd <= 64 because LSE and D come from shared memory, not registers;
-//    it uses no setmaxnreg.
 //  - TMA needs a 16-byte-aligned base and every outer stride a multiple
 //    of 16 bytes; the wrapper checks q, k, v and dO and raises otherwise.
 //
@@ -482,8 +514,41 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, const Args& a) {
          (a.window <= 0 || qpos - kpos < a.window);
 }
 
+// The 64-key dK / dV passes' producer warp: for each (head in group, q
+// tile) pair n, the TMA of its Q and dO tiles (PANELS panels each) into
+// ring stage n % ST once the consumers freed it, and its 64 LSE (log2
+// units) and D values into rows[stage][128] beside them, so the consumers
+// hold no copy in registers.
+template <int PANELS, int ST>
+__device__ __forceinline__ void produce_pairs(
+    uint8_t* ring, int tile, float* rows, uint64_t* full, uint64_t* empty,
+    const CUtensorMap* qmap, const CUtensorMap* dmap, const float* lse,
+    const float* D, const Args& a, int b, int kh, int qt_begin, int nq,
+    int lane) {
+  const int g = a.H / a.Kh;
+  for (int n = 0; n < g * nq; ++n) {
+    const int s = n % ST;
+    const int h = kh * g + n / nq;
+    const int q0 = (qt_begin + n % nq) * 64;
+    hopper::mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+    if (lane == 0) {
+      hopper::mbar_expect_tx(&full[s], 2 * tile);
+      uint8_t* qd = ring + s * 2 * tile;
+      load_rows<PANELS>(qd, qmap, h, q0, b, &full[s]);
+      load_rows<PANELS>(qd + tile, dmap, h, q0, b, &full[s]);
+    }
+    const long long lrow = ((long long)b * a.H + h) * a.Sq;
+    for (int r = lane; r < 64; r += 32) {
+      const bool in = q0 + r < a.Sq;
+      rows[s * 128 + r] = in ? lse[lrow + q0 + r] * LOG2E : 0.f;
+      rows[s * 128 + 64 + r] = in ? D[lrow + q0 + r] : 0.f;
+    }
+    hopper::mbar_arrive(&full[s]);
+  }
+}
+
 template <int HD>
-__global__ void __launch_bounds__(288, 1)
+__global__ void __launch_bounds__(Bwd<HD>::KV_THREADS, 1)
 fa_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
@@ -539,27 +604,9 @@ fa_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       load_rows<C::PANELS>(Ks, &kmap, kh, k0, b, kvbar);
       load_rows<C::PANELS>(Vs, &vmap, kh, k0, b, kvbar);
     }
-    for (int n = 0; n < npairs; ++n) {
-      const int s = n % ST;
-      const int h = kh * g + n / nq;
-      const int q0 = (qt_begin + n % nq) * 64;
-      hopper::mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
-      if (lane == 0) {
-        hopper::mbar_expect_tx(&full[s], 2 * C::TILE);
-        uint8_t* qd = ring + s * 2 * C::TILE;
-        load_rows<C::PANELS>(qd, &qmap, h, q0, b, &full[s]);
-        load_rows<C::PANELS>(qd + C::TILE, &dmap, h, q0, b, &full[s]);
-      }
-      // the pair's LSE and D beside its tiles, so the consumers hold
-      // no copy in registers
-      const long long lrow = ((long long)b * a.H + h) * a.Sq;
-      for (int r = lane; r < 64; r += 32) {
-        const bool in = q0 + r < a.Sq;
-        rows[s * 128 + r] = in ? lse[lrow + q0 + r] * LOG2E : 0.f;
-        rows[s * 128 + 64 + r] = in ? D[lrow + q0 + r] : 0.f;
-      }
-      hopper::mbar_arrive(&full[s]);
-    }
+    produce_pairs<C::PANELS, ST>(ring, C::TILE, rows, full, empty, &qmap,
+                                 &dmap, lse, D, a, b, kh, qt_begin, nq,
+                                 lane);
   } else {
     // consumer warpgroups: wg takes the pairs n = wg, wg + 2, ...; both own
     // the tile's 64 key rows: rows kr and kr + 8 of the accumulators,
@@ -654,6 +701,195 @@ fa_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                                     dv_acc[4 * i + 2 * r + 1]);
         }
       }
+    }
+  }
+}
+
+// dK / dV at HDP 128 over 128-key tiles: 256 threads, two warpgroups
+// and no producer warp. Warpgroup w owns key rows 64 w .. 64 w + 63 of the
+// tile and keeps their whole 64 x 128 dK and dV in f32 registers (128 a
+// thread); both take every (head, q tile) pair from the same ring stage,
+// so each Q and dO tile streamed from L2 serves 128 key rows, not 64.
+// Eight warps leave a thread 255 registers (at nine or twelve the
+// register file's four quarters cap it at 168, which spills these
+// accumulators). Thread 0 issues the TMA loads, a stage ahead of its
+// consumers: stage (n - 1) % ST, once both warpgroups freed it, gets pair
+// n + ST - 1. Each warpgroup stages its pairs' LSE and D through shared
+// memory itself, loaded a pair ahead (one named barrier a pair).
+struct Wide {
+  static constexpr int TILE = 64 * 128 * 2;          // 64 rows at HDP 128
+  static constexpr int STAGES = 4;
+  static constexpr int RING = STAGES * 2 * TILE;     // (Q, dO) stages
+  static constexpr int TILES = 4 * TILE + RING;      // K, V: 128 rows each
+  static constexpr int ROWS = 2 * 2 * 128 * 4;       // [wg][buffer][LSE, D]
+  static constexpr int SMEM = TILES + ROWS + 128 + 1024;
+  static constexpr int THREADS = 256;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(256, 1)
+fa_dkdv_wide(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap dmap,
+             const float* __restrict__ lse, const float* __restrict__ D,
+             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+             Args a) {
+  using C = Wide;
+  constexpr int ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint8_t* Ks = sm;                        // warpgroup w's rows at w * TILE
+  uint8_t* Vs = sm + 2 * C::TILE;
+  uint8_t* ring = sm + 4 * C::TILE;        // stage s: Q, then dO
+  float* rowbuf = reinterpret_cast<float*>(sm + C::TILES);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + C::TILES + C::ROWS);
+  uint64_t* kvbar = bar;
+  uint64_t* full = bar + 1;                // [ST]
+  uint64_t* empty = bar + 1 + ST;          // [ST]
+
+  // a 1-D grid, key tile slowest and first first: under the causal mask
+  // the first key tiles see the most q tiles, and start in the first wave
+  const int per_tile = (int)gridDim.x / ((a.Sk + 127) / 128);  // Kh * B
+  const int k0 = (int)blockIdx.x / per_tile * 128;
+  const int kh = (int)blockIdx.x % per_tile % a.Kh;
+  const int b = (int)blockIdx.x % per_tile / a.Kh;
+  const int g = a.H / a.Kh;
+  // q tiles holding a row that sees some key of this tile
+  const int kmax = min(k0 + 128, a.Sk) - 1;
+  int qt_begin = 0, qt_end = (a.Sq + 63) / 64;
+  if (a.causal) qt_begin = k0 / 64;
+  if (a.window > 0) qt_end = min(qt_end, (kmax + a.window - 1) / 64 + 1);
+  const int nq = max(0, qt_end - qt_begin);
+  const int npairs = g * nq;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);     // both warpgroups' warps
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto pair_q0 = [&](int n) { return (qt_begin + n % nq) * 64; };
+  auto pair_h = [&](int n) { return kh * g + n / nq; };
+  // pair n's Q and dO into its stage (thread 0)
+  auto load_pair = [&](int n) {
+    const int s = n % ST;
+    hopper::mbar_expect_tx(&full[s], 2 * C::TILE);
+    uint8_t* qd = ring + s * 2 * C::TILE;
+    load_rows<2>(qd, &qmap, pair_h(n), pair_q0(n), b, &full[s]);
+    load_rows<2>(qd + C::TILE, &dmap, pair_h(n), pair_q0(n), b, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(kvbar, 4 * C::TILE);
+    for (int w = 0; w < 2; ++w) {
+      load_rows<2>(Ks + w * C::TILE, &kmap, kh, k0 + 64 * w, b, kvbar);
+      load_rows<2>(Vs + w * C::TILE, &vmap, kh, k0 + 64 * w, b, kvbar);
+    }
+    for (int n = 0; n < min(ST - 1, npairs); ++n) load_pair(n);
+  }
+  // this warpgroup's copy of pair n's LSE (log2 units; threads 0-63) or
+  // D (64-127), fetched a pair ahead into a register
+  auto fetch = [&](int n) {
+    const int q = pair_q0(n) + tid % 64;
+    const long long row = ((long long)b * a.H + pair_h(n)) * a.Sq + q;
+    return q >= a.Sq ? 0.f : tid < 64 ? lse[row] * LOG2E : D[row];
+  };
+  float* rows_w = rowbuf + wg * 2 * 128;   // [buffer][LSE, D]
+  float ahead = npairs > 0 ? fetch(0) : 0.f;
+
+  // rows kr and kr + 8 (key rows) of the accumulators, columns 8i + 2t
+  // (+1): q rows in S^T / dP^T, head dims in dK / dV
+  const int t = lane % 4;
+  const int kr = k0 + 64 * wg + (warp % 4) * 16 + lane / 4;
+  const int kw0 = k0 + 64 * wg;            // this warpgroup's first key
+  const uint8_t* Kw = Ks + wg * C::TILE;
+  const uint8_t* Vw = Vs + wg * C::TILE;
+  const float sl2 = a.sm_scale * LOG2E;
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hopper::mbar_wait(kvbar, 0);
+  // warpgroup 1 starts once warpgroup 0 has issued its first products,
+  // so that each one's exp and dS fall between the other's products
+  if (wg == 1 && npairs > 0) hopper::bar_sync(3, 256);
+  for (int n = 0; n < npairs; ++n) {
+    const int s = n % ST;
+    const int q0 = pair_q0(n);
+    // pair n + ST - 1 into the stage pair n - 1 used, once both freed it
+    if (threadIdx.x == 0 && n + ST - 1 < npairs) {
+      if (n >= 1) hopper::mbar_wait(&empty[(n - 1) % ST], ((n - 1) / ST) & 1);
+      load_pair(n + ST - 1);
+    }
+    rows_w[(n & 1) * 128 + tid] = ahead;
+    if (n + 1 < npairs) ahead = fetch(n + 1);
+    hopper::bar_sync(1 + wg, 128);         // pair n's LSE and D visible
+    const uint8_t* qd = ring + s * 2 * C::TILE;
+    const uint8_t* dod = qd + C::TILE;
+    hopper::mbar_wait(&full[s], (n / ST) & 1);
+
+    float st[32], dpt[32];
+    hopper::wgmma_fence();
+    tile_nt<128>(st, Kw, qd);              // S^T = K Q^T
+    tile_nt<128>(dpt, Vw, dod);            // dP^T = V dO^T
+    hopper::wgmma_commit();
+    if (wg == 0 && n == 0) hopper::bar_arrive(3, 256);
+    const float* lc = rows_w + (n & 1) * 128;   // by column (q row)
+    const float* dc = lc + 64;
+    hopper::wgmma_wait();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    const bool edge = q0 + 64 > a.Sq || kw0 + 64 > a.Sk ||
+                      (a.causal && kw0 + 63 > q0) ||
+                      (a.window > 0 && q0 + 63 - kw0 >= a.window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * i + 2 * t + (j & 1);
+        float p = exp2f(st[4 * i + j] * sl2 - lc[c]);
+        if (edge && !visible(q0 + c, kr + (j >> 1) * 8, a)) p = 0.f;
+        st[4 * i + j] = p;
+        dpt[4 * i + j] = p * (dpt[4 * i + j] - dc[c]);
+      }
+    uint32_t pf[4][4], df[4][4];
+    hopper::to_a_frags<64>(st, pf);
+    hopper::to_a_frags<64>(dpt, df);
+    hopper::wgmma_fence();
+    tile_nn(dv_acc, pf, dod);              // dV += P^T dO
+    tile_nn(dk_acc, df, qd);               // dK += dS^T Q
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kr + 8 * r;
+    if (kpos >= a.Sk) continue;
+    __nv_bfloat16* dkr = dk + b * a.dks.b + kh * a.dks.h +
+                         (long long)kpos * a.dks.s;
+    __nv_bfloat16* dvr = dv + b * a.dvs.b + kh * a.dvs.h +
+                         (long long)kpos * a.dvs.s;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * a.sm_scale,
+                                dk_acc[4 * i + 2 * r + 1] * a.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(dv_acc[4 * i + 2 * r],
+                                dv_acc[4 * i + 2 * r + 1]);
     }
   }
 }
@@ -817,10 +1053,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                               a.dos.h, a.dos.s, 64)))
     return err;
 
-  if ((err = set_smem(fa_dkdv_wgmma<HD>, C::KV_SMEM))) return err;
-  const unsigned grid_kv = (unsigned)((a.Sk + 63) / 64) * a.Kh * a.B;
-  fa_dkdv_wgmma<HD><<<grid_kv, C::KV_THREADS, C::KV_SMEM, stream>>>(
-      qm, km, vm, dm, lse, D, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  if constexpr (C::HDP == 128) {
+    if ((err = set_smem(fa_dkdv_wide<HD>, Wide::SMEM))) return err;
+    const unsigned grid_wide = (unsigned)((a.Sk + 127) / 128) * a.Kh * a.B;
+    fa_dkdv_wide<HD><<<grid_wide, Wide::THREADS, Wide::SMEM, stream>>>(
+        qm, km, vm, dm, lse, D, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  } else {
+    if ((err = set_smem(fa_dkdv_wgmma<HD>, C::KV_SMEM))) return err;
+    const unsigned grid_kv = (unsigned)((a.Sk + 63) / 64) * a.Kh * a.B;
+    fa_dkdv_wgmma<HD><<<grid_kv, C::KV_THREADS, C::KV_SMEM, stream>>>(
+        qm, km, vm, dm, lse, D, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  }
   if ((err = (int)cudaGetLastError())) return err;
 
   if ((err = set_smem(fa_dq_wgmma<HD>, C::Q_SMEM))) return err;

@@ -17,7 +17,10 @@ a thread-block cluster per
 reads no K or V of a tile whose slots are all invalid (unless the row
 has no valid slot at all), and merges the splits' softmax states
 through distributed shared memory in a fixed order, so two runs are
-bitwise equal. No scratch is allocated. k and v are read through
+bitwise equal. bf16 groups of 4 to 16 query heads a KV head score and
+sum on the tensor cores (the heads as the rows of ``mma.sync``, K and V
+tiles brought by TMA, P rounded to bf16) where TMA can read the cache
+views; the rest runs on the CUDA cores. No scratch is allocated. k and v are read through
 element strides (last dim contiguous): the model passes its ``(B, W,
 Kh, hd)`` cache as a permuted view, never a copy. Any W works (no
 ``W % block`` assert).

@@ -8,12 +8,14 @@ one gradient-sync step per schedule kind, the 2-D pipeline step
 (against the CPU and the single-axis program, and its kernel launches),
 the remaining families: both attention kernels at their shapes
 (cross-attention's Sq != Sk, g 5 and 7, mixtral's window across S 4608,
-its 4096-slot ring, whisper's 1500 cross keys), one full-width mixtral
-MoE layer in bf16 against f32 on the CPU, and the reduced MoE, enc-dec
-and VLM models against the CPU; and the multi-host runtime: an
-in-process cluster of 3 hosts x 2 ranks on the card against the same
-run on the CPU, and the hierarchical step's ``bucket_combine`` launches
-against its local schedule.
+its 4096-slot ring, whisper's 1500 cross keys), the decode's groups of 4
+to 16 heads (the tensor-core kernel in bf16) and the backward at hd 112
+and 128 (the hybrid train path's S 4096, windows, Sq != Sk), one
+full-width mixtral MoE layer in bf16 against f32 on the CPU, and the
+reduced MoE, enc-dec and VLM models against the CPU; and the multi-host
+runtime: an in-process cluster of 3 hosts x 2 ranks on the card against
+the same run on the CPU, and the hierarchical step's ``bucket_combine``
+launches against its local schedule.
 
 They need an NVIDIA Hopper GPU and ``nvcc``, and skip without a card:
 
@@ -806,6 +808,56 @@ def test_flash_attention_backward_is_deterministic(dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H,Kh,hd,Sq,Sk,win,causal", [
+    (32, 32, 112, 4096, 4096, None, True),  # the hybrid train path's rank
+    (32, 32, 112, 777, 777, 300, True),     # a window, a ragged tail
+    (16, 4, 128, 1000, 1000, None, True),   # hd 128, g = 4
+    (16, 4, 128, 333, 333, 100, True),
+    (8, 2, 128, 200, 333, None, False),     # Sq < Sk, not causal
+    (4, 4, 112, 300, 130, None, False),     # Sq > Sk
+])
+def test_flash_attention_backward_hdp128_matches_plain(H, Kh, hd, Sq, Sk,
+                                                       win, causal, dtype):
+    """The passes at HDP 128 (bf16: the 128-key dK / dV kernel
+    ``fa_dkdv_wide`` and ``fa_dq_wgmma``) through autograd, against
+    autograd of the plain version, in the layout of the inputs."""
+    gen = torch.Generator("cuda").manual_seed(Sq + Sk + hd)
+    q = _randn(gen, (1, Sq, H, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (1, Sk, Kh, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (1, Sk, Kh, hd), dtype).transpose(1, 2)
+    do = _randn(gen, (1, Sq, H, hd), dtype).transpose(1, 2)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    n = FA.flash_attention_bwd.launches
+    out = FA.flash_attention(*leaves, causal=causal, sliding_window=win)
+    out.backward(do)
+    assert FA.flash_attention_bwd.launches == n + 1
+    want = FA.attention_bwd_ref(q, k, v, do, causal=causal,
+                                sliding_window=win)
+    for x, w in zip(leaves, want):
+        g = x.grad
+        assert g.dtype == dtype and g.stride() == x.stride()
+        assert _err(g, w) <= TOL[dtype] * max(1.0, w.float().abs().max()
+                                              .item())
+
+
+@pytest.mark.parametrize("H,Kh,hd,S", [(32, 32, 112, 4096),
+                                       (16, 4, 128, 1000)])
+def test_flash_attention_backward_hdp128_is_deterministic(H, Kh, hd, S):
+    """No atomics at HDP 128 either: two bf16 backward runs on the same
+    inputs give bitwise equal gradients."""
+    gen = torch.Generator("cuda").manual_seed(S)
+    q = _randn(gen, (1, S, H, hd), torch.bfloat16).transpose(1, 2)
+    k = _randn(gen, (1, S, Kh, hd), torch.bfloat16).transpose(1, 2)
+    v = _randn(gen, (1, S, Kh, hd), torch.bfloat16).transpose(1, 2)
+    do = _randn(gen, (1, S, H, hd), torch.bfloat16).transpose(1, 2)
+    out, lse = FA._forward(q, k, v, True, None, want_lse=True)
+    first = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    again = FA.flash_attention_bwd(q, k, v, out, do, lse)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("op", ["add", "copy"])
 def test_bucket_combine_matches_plain_bitwise(op):
     gen = torch.Generator("cuda").manual_seed(1)
@@ -1035,6 +1087,69 @@ def test_flash_decode_family_shapes_match_plain(B, H, Kh, W, hd, mask,
     assert _err(got, want) <= TOL[dtype]
     if dtype == torch.bfloat16:
         assert _row_err(got, want) <= FAM_ROW_TOL
+
+
+def _group_mask(gen, B, W, mask):
+    """``holes`` or ``prefix`` as ``_decode_mask`` (row 0 with no valid
+    slot), or ``all`` valid in every row."""
+    if mask == "all":
+        return torch.ones((B, W), dtype=torch.int32, device="cuda")
+    return _decode_mask(gen, B, W, mask)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("mask", ["holes", "prefix", "all"])
+@pytest.mark.parametrize("hd", FD.HEAD_DIMS)
+@pytest.mark.parametrize("g", [4, 5, 7, 8, 16])
+def test_flash_decode_grouped_matches_plain(g, hd, mask, dtype):
+    """The groups of 4 to 16 query heads a KV head (bf16: the tensor-core
+    kernel, f32: the CUDA-core one) at W 333, not a multiple of 64, at
+    every head dim the wrapper takes (hd 16: one k-step, a 64-column TMA
+    box zero-filled past 16; hd 112: a second panel half filled): every
+    group size the models use (mixtral 4, llama4 5, llava 7, the qwen2s
+    8) and the bucket's top, within TOL and, in bf16, within
+    ``FAM_ROW_TOL`` of every output row."""
+    B, Kh, W = 3, 2, 333
+    gen = torch.Generator("cuda").manual_seed(100 * g + hd)
+    q = _randn(gen, (B, g * Kh, hd), dtype)
+    k = _cache_view(gen, B, W, Kh, hd, dtype, True)
+    v = _cache_view(gen, B, W, Kh, hd, dtype, True)
+    valid = _group_mask(gen, B, W, mask)
+    n = FD.flash_decode.launches
+    got = FD.flash_decode(q, k, v, valid)
+    assert FD.flash_decode.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    want = FD.decode_ref(q, k, v, valid)
+    assert _err(got, want) <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= FAM_ROW_TOL
+
+
+@pytest.mark.parametrize("B,H,Kh,W,hd,valid_to", [
+    (4, 32, 8, 4096, 128, None),        # mixtral's ring, with holes
+    (2, 56, 8, 1152, 128, 1100),        # llava's cache, the first 1100
+])
+def test_flash_decode_grouped_is_deterministic(B, H, Kh, W, hd, valid_to):
+    """The tensor-core kernel merges its warps and splits in a fixed
+    order: two runs are bitwise equal, and so are the model's permuted
+    cache view and a contiguous copy."""
+    gen = torch.Generator("cuda").manual_seed(W)
+    q = _randn(gen, (B, H, hd), torch.bfloat16)
+    k = _cache_view(gen, B, W, Kh, hd, torch.bfloat16, True)
+    v = _cache_view(gen, B, W, Kh, hd, torch.bfloat16, True)
+    if valid_to is None:
+        valid = _decode_mask(gen, B, W, "holes")
+    else:
+        valid = (torch.arange(W, device="cuda") < valid_to).to(
+            torch.int32).expand(B, W).contiguous()
+    got = FD.flash_decode(q, k, v, valid)
+    assert torch.equal(FD.flash_decode(q, k, v, valid), got)
+    assert torch.equal(
+        FD.flash_decode(q, k.contiguous(), v.contiguous(), valid), got)
+    want = FD.decode_ref(q, k, v, valid)
+    assert _err(got, want) <= TOL[torch.bfloat16]
+    assert _row_err(got, want) <= FAM_ROW_TOL
 
 
 def test_moe_layer_full_width_bf16_on_card_matches_cpu_f32():

@@ -1,6 +1,8 @@
 """Same-card comparison of flash_decode and the bf16 SSD scan with
 variants of their own sources, the evidence for the choices in
-``src/repro_torch/csrc/flash_decode.cu`` and ``csrc/mamba2_scan.cu``:
+``src/repro_torch/csrc/flash_decode.cu`` and ``csrc/mamba2_scan.cu``.
+The CUDA-core decode kernel (f32, and bf16 groups of 1 to 3 heads) at
+smollm's and zamba2's shapes:
 
     decode main      the kernel as built: splits for at least 132 blocks,
                      at most 8 a cluster, tiles with no valid key not read
@@ -11,6 +13,34 @@ variants of their own sources, the evidence for the choices in
     decode zfill     also the empty 32-key half of a tile that is read
                      zero-filled instead of read
     decode tile128   128-key tiles over 8 warps (256 threads)
+
+the tensor-core decode kernel (bf16 groups of 4 to 16 heads,
+``flash_decode_kernel_mma``) at mixtral's ring (B=4, H=32, Kh=8,
+W=4096, hd 128, 8 layers' caches cycled) and llava's cache (B=2, H=56,
+Kh=8, W=1152 with the first 1100 slots valid, 16 layers), beside SDPA:
+
+    mma main         the kernel as built: mma.sync m16n8k16, a TMA ring of
+                     4 (K, V) tile pairs fed by a producer warp, the most
+                     splits (at most 8 a cluster) that keep the grid to
+                     66 blocks, half the SMs in one wave (2 splits at
+                     mixtral's 32 (row, KV head) pairs, 4 at llava's 16)
+    mma stages2      a ring of 2 tile pairs
+    mma stages3      a ring of 3 tile pairs
+    mma blocks33     at most 33 blocks (1 split at mixtral's shape)
+    mma blocks132    at most 132 blocks, one an SM (4 splits at mixtral's;
+                     3 stages)
+    mma blocks264    at most 264 blocks, two an SM (8 splits at mixtral's;
+                     3 stages, so two blocks fit an SM)
+    mma split16      at most 16 splits a cluster (a non-portable size), at
+                     most 528 blocks (16 at mixtral's shape; 3 stages)
+    mma cuda_cores   the CUDA-core kernel's 16-head bucket instead (the
+                     decode before this kernel: spare heads computed on
+                     zeros)
+
+and each variant's floor, one 64-key tile a row at mixtral's heads.
+(``wgmma`` with the heads as 64 padded rows was not built: m16 already
+holds every group.) Then the SSD scan:
+
     scan main        the kernel as built: wgmma, hi/lo bf16 operands, two
                      warpgroups (the chain through h; the rest)
     scan no_lo       one bf16 operand each (the lo products dropped):
@@ -38,7 +68,7 @@ the variants reversed, main: the decode's by ``chip_smoke.time_ms``
 calls (at 0.1 ms and more a call the launch rate does not show), and
 the decode's floor: main at one 128-key tile a row (W=128, 24 blocks).
 
-    python3 tools/decode_scan_variants.py [decode|scan]
+    python3 tools/decode_scan_variants.py [decode|mma|scan]
 
 (one part only when named). Beside the variants, the scan as built at
 B=1 (112 blocks, at most one an SM) and at S=1024: whether a block's
@@ -66,18 +96,40 @@ DECODE_EDITS = {
     "main": [],
     "more": [("MIN_BLOCKS = 132;", "MIN_BLOCKS = 264;")],
     "split16": [
-        ("MAX_SPLIT = 8;", "MAX_SPLIT = 16;"),
+        ("MAX_SPLIT = 8;      // blocks in a cluster (portable limit)",
+         "MAX_SPLIT = 16;"),
         ("MIN_BLOCKS = 132;", "MIN_BLOCKS = 528;"),
-        ("  cudaLaunchConfig_t cfg = {};",
+        ("  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);",
          "  if (ns > 8) cudaFuncSetAttribute(kernel, "
          "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
-         "  cudaLaunchConfig_t cfg = {};")],
+         "  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);")],
     "no_skip": [("return !row_any || qflag[grp];", "return true;")],
     "zfill": [("        const bool ok = j < n;\n        const long long row = ok",
                "        const bool ok = j < n && wanted(QUARTERS * tl + j / 32);"
                "\n        const long long row = ok")],
     "tile128": [("TILE = 64;", "TILE = 128;"), ("THREADS = 128;",
                                                  "THREADS = 256;")],
+}
+ST4 = "STAGES = 4;                       // (K, V) tile pairs"
+MMA_LAUNCH = "  if ((err = (int)cudaLaunchKernelEx(&cfg, kernel, km, vm, a)))"
+MMA_EDITS = {
+    "main": [],
+    "stages2": [(ST4, ST4.replace("4", "2"))],
+    "stages3": [(ST4, ST4.replace("4", "3"))],
+    "blocks33": [("MAX_BLOCKS = 66;", "MAX_BLOCKS = 33;")],
+    "blocks132": [("MAX_BLOCKS = 66;", "MAX_BLOCKS = 132;"),
+                  (ST4, ST4.replace("4", "3"))],
+    "blocks264": [("MAX_BLOCKS = 66;", "MAX_BLOCKS = 264;"),
+                  (ST4, ST4.replace("4", "3"))],
+    "split16": [("MAX_SPLIT = 8;                    // blocks in a cluster",
+                 "MAX_SPLIT = 16;                    // blocks in a cluster"),
+                ("MAX_BLOCKS = 66;", "MAX_BLOCKS = 528;"),
+                (ST4, ST4.replace("4", "3")),
+                (MMA_LAUNCH, "  if (ns > 8 && (err = (int)cudaFuncSetAttribute(\n"
+                 "          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,"
+                 " 1)))\n    return err;\n" + MMA_LAUNCH)],
+    "cuda_cores": [("if (a.g > 3 && tc::tma_ok(a, B))",
+                    "if (a.g > MAX_G && tc::tma_ok(a, B))")],
 }
 SCAN_EDITS = {
     "main": [],
@@ -101,7 +153,9 @@ SCAN_EDITS = {
 }
 # the main paths' instantiations: decode <bf16, hd, G>, scan <f32 y, P, N>
 PTXAS = {"flash_decode": (r"flash_decode_kernelI13__nv_bfloat16Li64ELi3E",
-                          r"flash_decode_kernelI13__nv_bfloat16Li112ELi1E"),
+                          r"flash_decode_kernelI13__nv_bfloat16Li112ELi1E",
+                          r"flash_decode_kernel_mmaILi128E",
+                          r"flash_decode_kernelI13__nv_bfloat16Li128ELi16E"),
          "mamba2_scan": (r"ssd_tc_kernelIfLi64ELi64E",)}
 
 
@@ -113,7 +167,7 @@ def ptxas_summary(name: str, log: str) -> str:
         m = re.search(pat + r".*?\n(?:.*?(\d+) bytes spill stores.*?\n)?"
                       r".*?Used (\d+) registers", log)
         if m:
-            out.append(f"{pat.split('_kernelI')[1]}: {m.group(2)} registers,"
+            out.append(f"{pat.split('_kernel')[1]}: {m.group(2)} registers,"
                        f" {m.group(1) or 0} bytes spilled")
         out += [line.split("Potential Performance Loss: ")[-1].split(
                 " for the function")[0] for line in log.splitlines()
@@ -155,9 +209,11 @@ def main() -> None:
     print(CS.card_line())
     build.build_all(["flash_decode", "mamba2_scan"])
     gen = torch.Generator("cuda").manual_seed(0)
-    parts = sys.argv[1:] or ["decode", "scan"]
+    parts = sys.argv[1:] or ["decode", "mma", "scan"]
     if "decode" in parts:
         decode_variants(gen)
+    if "mma" in parts:
+        mma_variants(gen)
     if "scan" in parts:
         scan_variants(gen)
 
@@ -195,6 +251,55 @@ def decode_variants(gen) -> None:
                                 for kk, vv in views],
                        calls=len(views), kernels=CS.DECODE)
     print(f"decode main floor (B=8 H=9 Kh=3 W=128 hd=64): {ms:.4f} ms")
+
+
+def mma_cases(gen):
+    """chip_smoke.py's two grouped-query decode timing shapes, and the
+    floor: (name, q, the layers' (k, v) views, valid)."""
+    out = []
+    for what, B, H, W, L, mask in (("mixtral", 4, 32, 4096, 8, "ring"),
+                                   ("llava", 2, 56, 1152, 16, 1100),
+                                   ("floor", 4, 32, 64, 8, "all")):
+        q, views, valid = CS._fam_decode_inputs(gen, B, H, 8, W, 128, L,
+                                                mask, torch.bfloat16)
+        out.append((what, q, views, valid))
+    return out
+
+
+def mma_variants(gen) -> None:
+    main_fn = FD._kernel(torch.bfloat16)
+    fns = {}
+    for var, (fn, info) in build_variants(
+            "flash_decode", MMA_EDITS, "flash_decode_bf16",
+            functools.partial(ptxas_summary, "flash_decode")).items():
+        fn.argtypes, fn.restype = main_fn.argtypes, ctypes.c_int
+        fns[var] = (fn, info)
+    for var, (_, info) in fns.items():
+        print(f"ptxas mma {var}: {info}")
+    cases = mma_cases(gen)
+    row = []
+    for what, q, views, valid in cases:
+        q4, mask = q[:, :, None, :], (valid[:, None, None, :] > 0)
+        ms = event_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=mask, enable_gqa=True)
+            for kk, vv in views], iters=10) / len(views)
+        row.append(f"{what}: {ms:.4f} ms")
+    print("mma SDPA (CUDA events): " + "; ".join(row))
+    order = list(MMA_EDITS)
+    for var in order + order[::-1]:
+        FD._lib[torch.bfloat16] = fns[var][0]
+        row = []
+        for what, q, views, valid in cases:
+            got = FD.flash_decode(q, *views[0], valid)
+            want = FD.decode_ref(q, *views[0], valid)
+            err = (got.float() - want.float()).abs().max().item()
+            ms, _ = CS.time_ms(lambda: [FD.flash_decode(q, kk, vv, valid)
+                                        for kk, vv in views],
+                               calls=len(views), kernels=CS.DECODE)
+            row.append(f"{what}: {ms:.4f} ms (err {err:.3e}, row "
+                       f"{CS._row_err(got, want):.3e})")
+        print(f"mma {var}: " + "; ".join(row))
+    FD._lib[torch.bfloat16] = main_fn
 
 
 def scan_variants(gen) -> None:
