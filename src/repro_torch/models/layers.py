@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import constrain
+from ..sharding import constrain, project
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
@@ -71,10 +71,15 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
-def mlp_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x @ gate) * (x @ up)) @ down."""
-    h = constrain(F.silu(x @ p["gate"]) * (x @ p["up"]), "batch", None, "ff")
-    return h @ p["down"]
+def mlp_apply(p: Dict, x: torch.Tensor, per_rank: bool = False
+              ) -> torch.Tensor:
+    """SwiGLU: (silu(x @ gate) * (x @ up)) @ down. ``per_rank``: the three
+    products per rank on the dry-run's DTensors (``sharding.project``;
+    the hybrid's shared block)."""
+    mm = project if per_rank else (lambda a, w, parallel: a @ w)
+    h = constrain(F.silu(mm(x, p["gate"], "column"))
+                  * mm(x, p["up"], "column"), "batch", None, "ff")
+    return mm(h, p["down"], "row")
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba2_scan import mamba2_scan
-from ..sharding import constrain
+from ..sharding import constrain, project
 from .layers import dense_init
 
 
@@ -74,8 +74,9 @@ def ssm_init(gen: torch.Generator, d_model: int, *, state: int, conv: int,
 
 
 def _split_proj(p: Dict, u: torch.Tensor, d_inner: int, state: int):
-    """(z, xbc, dt): views of the one input projection."""
-    zxbcdt = u @ p["in_proj"]
+    """(z, xbc, dt): views of the one input projection (per rank on the
+    dry-run's DTensors, ``sharding.project``)."""
+    zxbcdt = project(u, p["in_proj"], "column")
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:2 * d_inner + 2 * state],
             zxbcdt[..., 2 * d_inner + 2 * state:])
 
@@ -93,25 +94,34 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _gated_norm_out(p: Dict, y: torch.Tensor, z: torch.Tensor,
                     dtype: torch.dtype) -> torch.Tensor:
-    """Gated RMSNorm in f32, then the out-projection in ``dtype``."""
+    """Gated RMSNorm in f32, then the out-projection in ``dtype`` (per
+    rank on the dry-run's DTensors)."""
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-5) * p["norm_w"].float()
-    return constrain(y.to(dtype), "batch", None, "ff") @ p["out_proj"]
+    y = constrain(y.to(dtype), "batch", None, "ff")
+    return project(y, p["out_proj"], "row")
 
 
 def ssm_apply(p: Dict, u: torch.Tensor, *, state: int, conv: int,
               expand: int, headdim: int, chunk: int = 256) -> torch.Tensor:
     """Training/prefill forward. u: (B,S,D) -> (B,S,D). The conv
-    output's x, B and C go to the scan kernel as strided views."""
+    output's x, B and C go to the scan kernel as strided views. The two
+    projections run per rank on the dry-run's DTensors."""
     B, S, D = u.shape
     d_inner, nh = ssm_dims(D, expand, headdim)
     z, xbc, dt = _split_proj(p, u, d_inner, state)
     xbc = _causal_conv(xbc, p["conv_w"])
-    x = xbc[..., :d_inner].unflatten(-1, (nh, headdim))        # (B,S,nh,P)
+    # the heads over "ff", as d_inner is at out_proj (a no-op w/o rules).
+    # The reference has no such hint: GSPMD carries in_proj's "ff" shard
+    # into the heads, where DTensor gathers the slices of a shard that
+    # does not align with them and would scan every head on every rank.
+    x = constrain(xbc[..., :d_inner].unflatten(-1, (nh, headdim)),
+                  "batch", None, "ff", None)                    # (B,S,nh,P)
     Bmat = xbc[..., d_inner:d_inner + state]
     Cmat = xbc[..., d_inner + state:]
-    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,nh)
+    dt = F.softplus(constrain(dt, "batch", None, "ff").float()
+                    + p["dt_bias"])                             # (B,S,nh)
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                  # in (0,1)
     y = mamba2_scan(x.transpose(1, 2), Bmat, Cmat, a.transpose(1, 2),
                     dt.transpose(1, 2), chunk=chunk,

@@ -282,7 +282,8 @@ def _hybrid_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
     a, k, v = _attn(cfg, shared["attn"],
                     rmsnorm(h, shared["ln1"], cfg.norm_eps), positions)
     h = h + a
-    h = h + mlp_apply(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps))
+    h = h + mlp_apply(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps),
+                      per_rank=True)
     return h, k, v, None
 
 
@@ -539,5 +540,6 @@ def decode_step(cfg: ModelConfig, params: Params, state: Dict,
                                  rmsnorm(h, shared["ln1"], cfg.norm_eps), t,
                                  _layer(layers["shared"], g), live)
             h = h + mlp_apply(shared["mlp"],
-                              rmsnorm(h, shared["ln2"], cfg.norm_eps))
+                              rmsnorm(h, shared["ln2"], cfg.norm_eps),
+                              per_rank=True)
     return _head(cfg, params, h)[:, 0], state

@@ -1,5 +1,5 @@
 from .rules import (ShardingRules, constrain, current_rules, param_shardings,
-                    param_specs, spec_to_placements, use_rules)
+                    param_specs, project, spec_to_placements, use_rules)
 
 __all__ = ["ShardingRules", "constrain", "current_rules", "param_shardings",
-           "param_specs", "spec_to_placements", "use_rules"]
+           "param_specs", "project", "spec_to_placements", "use_rules"]

@@ -138,6 +138,62 @@ def constrain(x, *logical_axes: Optional[str]):
     return x
 
 
+def project(x, w, parallel: str):
+    """``x @ w`` for a tensor-parallel projection: ``parallel`` is
+    "column" (``w``'s output dim over "ff") or "row" (its input dim).
+    On a plain tensor, or with no rules, it is ``x @ w`` itself.
+
+    On the dry-run's DTensors it runs per rank (``kernels.meta.run``),
+    forward and both gradients on the local shards, with the placements
+    the rules give, mesh dim by mesh dim:
+
+    * where "ff" shards ``w``, it keeps that shard; the output is sharded
+      ("column") or partial ("row") until the next ``constrain``;
+    * where ``x``'s batch is sharded, ``w`` is gathered and its gradient
+      is partial there, the pending reduce of a weight gradient;
+    * where "fsdp" shards ``w`` and the batch does not (a batch the data
+      axes do not divide, or a decode step, whose tokens are fewer than
+      the weight's elements and move instead), ``w`` keeps its shard and
+      ``x`` is split to match, its output partial or sharded there.
+
+    DTensor's own ``matmul`` flattens the token dims, and its backward
+    can make a strided shard of them, each of whose redistribution plans
+    is a graph search."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x @ w
+    from ..kernels import meta
+    mesh = rules.mesh
+    col = parallel == "column"
+    ff_dim, fs_dim = (1, 0) if col else (0, 1)
+
+    def over(name, n):
+        """The mesh dims that shard a dim of ``n`` over ``name``."""
+        spec = _divisible(rules.resolve(name), (n,), mesh)
+        return [p.is_shard() for p in spec_to_placements(spec, mesh)]
+    bt, ff = over("batch", x.shape[0]), over("ff", w.shape[ff_dim])
+    fs = over("fsdp", w.shape[fs_dim])
+    if x.numel() < w.numel():
+        bt = [b and not f for b, f in zip(bt, fs)]
+    fs = [f and not b and not t for f, b, t in zip(fs, bt, ff)]
+
+    def pick(on_batch, on_ff, on_fsdp):
+        return tuple(on_batch if b else on_ff if t else on_fsdp if f
+                     else Replicate() for b, t, f in zip(bt, ff, fs))
+    R, P, S0, Sl = Replicate(), Partial(), Shard(0), Shard(x.ndim - 1)
+    wpl = pick(R, Shard(ff_dim), Shard(fs_dim))
+    if col:
+        xpl, opl, dxpl = pick(S0, R, Sl), pick(S0, Sl, P), pick(S0, P, Sl)
+    else:
+        xpl, opl, dxpl = pick(S0, Sl, R), pick(S0, P, Sl), pick(S0, Sl, P)
+    dwpl = pick(P, Shard(ff_dim), Shard(fs_dim))
+    return meta.run(lambda a, b: a @ b, (x, w), (xpl, wpl), opl,
+                    in_grad_placements=(dxpl, dwpl))
+
+
 def param_specs(params, rules: ShardingRules):
     """Spec tree matching ``params`` (a nested dict of tensors) via the
     path rules."""

@@ -323,6 +323,36 @@ def test_model_with_rules_off_is_unchanged(monkeypatch):
                        apply_rope(x, pos.expand(3, 5), 1e4))
 
 
+@pytest.mark.parametrize("over", [{}, {"family": "ssm",
+                                       "hybrid_attn_every": 0}],
+                         ids=["hybrid", "ssm"])
+def test_hybrid_with_rules_off_is_the_plain_product(monkeypatch, over):
+    """With no rules, the hybrid's and the plain ssm's per-rank
+    projections (``sharding.project``) are ``x @ w``: a reduced zamba2's
+    logits, loss and gradients are bitwise those of the same model with
+    every projection written ``x @ w`` and the hints taken out."""
+    from repro_torch.models import layers, ssm, transformer
+    cfg = get_config("zamba2-7b").reduced(**over)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = api.make_inputs(ShapeConfig("t", 16, 2, "train"), seed=1,
+                            device="cpu")
+
+    def run():
+        return (transformer.forward(cfg, params, batch["tokens"])[0],
+                api.value_and_grad(params, batch))
+    want = run()
+    for mod in (layers, ssm, transformer):
+        monkeypatch.setattr(mod, "constrain", lambda x, *a: x)
+    for mod in (layers, ssm):
+        monkeypatch.setattr(mod, "project", lambda x, w, parallel: x @ w)
+    (logits, ((loss, _), grads)), (logits2, ((loss2, _), grads2)) = \
+        want, run()
+    assert torch.equal(logits, logits2) and torch.equal(loss, loss2)
+    for a, b in zip(tree_flatten(grads)[1], tree_flatten(grads2)[1]):
+        assert torch.equal(a, b)
+
+
 # ----------------------------------------------------------------- dry-run
 def _ref_local_bytes(tree, specs, sizes):
     """Rank 0's bytes of ``tree`` (reference shape/dtype leaves) laid out
