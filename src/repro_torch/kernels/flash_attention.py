@@ -300,16 +300,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sliding_window: Optional[int] = None) -> torch.Tensor:
     """q: (B,H,Sq,hd); k/v: (B,Kh,Sk,hd) -> (B,H,Sq,hd). CPU tensors take
     ``attention_ref``; CUDA tensors launch the Hopper kernel, through
-    ``FlashAttentionFn`` where autograd needs their gradient."""
+    ``FlashAttentionFn`` where autograd needs their gradient. DTensors
+    (the dry-run's meta shards, or CPU shards) run it per rank."""
+    # batch and heads stay sharded where GQA's groups divide; k and v
+    # (and out) take q's layout
+    pl = meta.placements(q, {0: q.shape[0], 1: k.shape[1]})
+    if pl is not None:
+        return meta.run(lambda *t: flash_attention(
+            *t, causal=causal, sliding_window=sliding_window),
+            (q, k, v), (pl, pl, pl), pl)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal,
                              sliding_window=sliding_window)
-    if q.device.type == "meta":
-        # batch and heads stay sharded where GQA's groups divide; k and v
-        # (and out) take q's layout
-        pl = meta.placements(q, {0: q.shape[0], 1: k.shape[1]})
-        return meta.run(lambda *t: _call(*t, causal, sliding_window),
-                        (q, k, v), (pl, pl, pl), pl)
     return _call(q, k, v, causal, sliding_window)
 
 

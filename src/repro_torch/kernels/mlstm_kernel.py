@@ -494,15 +494,17 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v: (B,NH,S,hd); logi/logf: (B,NH,S) -> y (B,NH,S,hd) in
     ``out_dtype`` (q's dtype by default). CPU tensors take
     ``mlstm_chunkwise_plain``; CUDA tensors launch the Hopper kernel,
-    through ``MlstmChunkwiseFn`` where autograd needs their gradient."""
+    through ``MlstmChunkwiseFn`` where autograd needs their gradient.
+    DTensors (the dry-run's meta shards, or CPU shards) run it per
+    rank."""
     out_dtype = out_dtype or q.dtype
+    pl = meta.placements(q, {0: q.shape[0], 1: q.shape[1]})
+    if pl is not None:
+        return meta.run(lambda *t: mlstm_chunkwise(*t, out_dtype=out_dtype),
+                        (q, k, v, logi, logf), (pl,) * 5, pl)
     if q.device.type == "cpu":
         return mlstm_chunkwise_plain(q, k, v, logi, logf,
                                      out_dtype=out_dtype)
-    ts = (q, k, v, logi, logf)
-    if q.device.type == "meta":
-        pl = meta.placements(q, {0: q.shape[0], 1: q.shape[1]})
-        return meta.run(lambda *t: _call(*t, out_dtype), ts, (pl,) * 5, pl)
     return _call(q, k, v, logi, logf, out_dtype)
 
 

@@ -27,7 +27,7 @@ import torch
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_decode import flash_decode
-from ..sharding import constrain
+from ..sharding import constrain, project
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -59,9 +59,9 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int,
 def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
                  head_dim: int):
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = project(x, p["wq"], "column")
+    k = project(x, p["wk"], "column")
+    v = project(x, p["wv"], "column")
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -97,7 +97,7 @@ def attention(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                         v.transpose(1, 2), causal=causal,
                         sliding_window=sliding_window)
     o = constrain(o.transpose(1, 2), "batch", None, "heads", None)
-    return o.reshape(B, S, n_heads * head_dim) @ p["wo"], k, v
+    return project(o.reshape(B, S, n_heads * head_dim), p["wo"], "row"), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +153,8 @@ def decode_attention(p: Dict, x: torch.Tensor, t: torch.Tensor,
         valid = valid & (qi - cpos < sliding_window)
     o = flash_decode(q[:, 0], cache["k"].permute(0, 2, 1, 3),
                      cache["v"].permute(0, 2, 1, 3), valid.to(torch.int32))
-    return o.reshape(B, 1, n_heads * head_dim) @ p["wo"], cache
+    return project(o.reshape(B, 1, n_heads * head_dim), p["wo"], "row"), \
+        cache
 
 
 def _write_slot(buf: torch.Tensor, bidx: torch.Tensor, idx: torch.Tensor,
@@ -203,7 +204,7 @@ def cross_attention(p: Dict, x: torch.Tensor,
     """x: (B,S,D) decoder rows; enc_kv: k, v (B,S_enc,Kh,hd) from
     ``cross_kv``. Every query attends over every encoder position."""
     B, S, _ = x.shape
-    q = x @ p["wq"]
+    q = project(x, p["wq"], "column")
     if "bq" in p:
         q = q + p["bq"]
     q = constrain(q, "batch", None, "heads").view(B, S, n_heads, head_dim)
@@ -215,7 +216,7 @@ def cross_attention(p: Dict, x: torch.Tensor,
     else:
         o = flash_attention(q.transpose(1, 2), k, v,
                             causal=False).transpose(1, 2)
-    return o.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    return project(o.reshape(B, S, n_heads * head_dim), p["wo"], "row")
 
 
 def cross_kv(p: Dict, enc_out: torch.Tensor, *, n_kv_heads: int,
@@ -223,8 +224,8 @@ def cross_kv(p: Dict, enc_out: torch.Tensor, *, n_kv_heads: int,
     """The encoder's K/V, once per sequence (reused every decode step):
     two (B,S_enc,Kh,hd)."""
     B, S, _ = enc_out.shape
-    k = enc_out @ p["wk"]
-    v = enc_out @ p["wv"]
+    k = project(enc_out, p["wk"], "column")
+    v = project(enc_out, p["wv"], "column")
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]

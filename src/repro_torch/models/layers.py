@@ -71,15 +71,12 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
-def mlp_apply(p: Dict, x: torch.Tensor, per_rank: bool = False
-              ) -> torch.Tensor:
-    """SwiGLU: (silu(x @ gate) * (x @ up)) @ down. ``per_rank``: the three
-    products per rank on the dry-run's DTensors (``sharding.project``;
-    the hybrid's shared block)."""
-    mm = project if per_rank else (lambda a, w, parallel: a @ w)
-    h = constrain(F.silu(mm(x, p["gate"], "column"))
-                  * mm(x, p["up"], "column"), "batch", None, "ff")
-    return mm(h, p["down"], "row")
+def mlp_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x @ gate) * (x @ up)) @ down, the three products per
+    rank on the dry-run's DTensors (``sharding.project``)."""
+    h = constrain(F.silu(project(x, p["gate"], "column"))
+                  * project(x, p["up"], "column"), "batch", None, "ff")
+    return project(h, p["down"], "row")
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,
@@ -112,5 +109,6 @@ def _embed_shards(emb, tokens):
 def unembed_apply(emb_or_head: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
     """Logits in the weights' dtype: ``x @ w.T`` for the (vocab, d_model)
-    embedding (tied) or head."""
-    return constrain(x @ emb_or_head.t(), "batch", None, "vocab")
+    embedding (tied) or head, per rank on the dry-run's DTensors."""
+    return constrain(project(x, emb_or_head, "vocab"), "batch", None,
+                     "vocab")

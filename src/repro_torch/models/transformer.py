@@ -282,8 +282,7 @@ def _hybrid_group(cfg: ModelConfig, pg: Dict, h: torch.Tensor,
     a, k, v = _attn(cfg, shared["attn"],
                     rmsnorm(h, shared["ln1"], cfg.norm_eps), positions)
     h = h + a
-    h = h + mlp_apply(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps),
-                      per_rank=True)
+    h = h + mlp_apply(shared["mlp"], rmsnorm(h, shared["ln2"], cfg.norm_eps))
     return h, k, v, None
 
 
@@ -540,6 +539,5 @@ def decode_step(cfg: ModelConfig, params: Params, state: Dict,
                                  rmsnorm(h, shared["ln1"], cfg.norm_eps), t,
                                  _layer(layers["shared"], g), live)
             h = h + mlp_apply(shared["mlp"],
-                              rmsnorm(h, shared["ln2"], cfg.norm_eps),
-                              per_rank=True)
+                              rmsnorm(h, shared["ln2"], cfg.norm_eps))
     return _head(cfg, params, h)[:, 0], state

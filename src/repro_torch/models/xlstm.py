@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mlstm_kernel import mlstm_chunkwise
-from ..sharding import constrain
+from ..sharding import constrain, project
 from .layers import dense_init
 
 
@@ -45,6 +45,18 @@ def _logsigmoid(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
     pl = tuple(Replicate() if p.is_partial() else p for p in t.placements)
     return meta.run(F.logsigmoid, (t,), (pl,), pl)
+
+
+def _merge_heads(y: torch.Tensor) -> torch.Tensor:
+    """(B,S,NH,hd) -> (B,S,NH*hd). On the dry-run's DTensors per rank,
+    in y's own layout: the gradient, which ``down``'s per-rank product
+    returns sharded over "ff", is regathered to it first (DTensor cannot
+    split a dim sharded unevenly over the heads)."""
+    if type(y) is torch.Tensor:
+        return y.flatten(2)
+    from ..kernels import meta
+    return meta.run(lambda t: t.flatten(2), (y,), (y.placements,),
+                    y.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -105,16 +117,17 @@ def _mlstm_in(p: Dict, u: torch.Tensor, n_heads: int):
     B, S, _ = u.shape
     d_in = p["wq"].shape[-1]
     hd = d_in // n_heads
-    hz = u @ p["up"]
+    hz = project(u, p["up"], "column")
     h, z = hz[..., :d_in], hz[..., d_in:]
     # the head split's layout set on the flat projections (the dry-run's
     # DTensors cannot split a dim sharded unevenly over the heads)
-    q, k, v = (constrain(h @ p[w], "batch", None, "heads").unflatten(
-        -1, (n_heads, hd)) for w in ("wq", "wk", "wv"))
+    q, k, v = (constrain(project(h, p[w], "column"), "batch", None,
+                         "heads").unflatten(-1, (n_heads, hd))
+               for w in ("wq", "wk", "wv"))
     k = k / math.sqrt(hd)
     hf = h.float()
-    logi = hf @ p["wi"]
-    logf = _logsigmoid(hf @ p["wf"] + p["fb"])
+    logi = project(hf, p["wi"], "column")
+    logf = _logsigmoid(project(hf, p["wf"], "column") + p["fb"])
     return q, k, v, logi, logf, z
 
 
@@ -123,18 +136,17 @@ def _mlstm_out(p: Dict, y: torch.Tensor, z: torch.Tensor,
     """f32 y (B,S,d_in) through the norm and the silu(z) gate, then
     ``down`` in the activations' dtype."""
     y = _rmsnorm_f32(y, p["norm_w"]) * F.silu(z.float())
-    return y.to(dtype) @ p["down"]
+    return project(y.to(dtype), p["down"], "row")
 
 
 def mlstm_apply(p: Dict, u: torch.Tensor, *, n_heads: int) -> torch.Tensor:
     """Chunkwise mLSTM. u: (B,S,D) -> (B,S,D). q, k, v and the gates go
     to the kernel as (B,NH,S,·) views of the (B,S,NH,·) projections."""
-    B, S, _ = u.shape
     q, k, v, logi, logf, z = _mlstm_in(p, u, n_heads)
     y = mlstm_chunkwise(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), logi.transpose(1, 2),
                         logf.transpose(1, 2), out_dtype=torch.float32).transpose(1, 2)
-    return _mlstm_out(p, y.reshape(B, S, -1), z, u.dtype)
+    return _mlstm_out(p, _merge_heads(y), z, u.dtype)
 
 
 def mlstm_state_shapes(batch: int, d_model: int, *, n_heads: int) -> Dict:
@@ -206,7 +218,7 @@ def _slstm_gates(p: Dict, u: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Input gate pre-activations (B,S,NH,4hd) in f32: ``b`` is cast to
     u's dtype before the add, as the reference does."""
     B, S, D = u.shape
-    gx = u @ p["wx"] + p["b"].to(u.dtype)
+    gx = project(u, p["wx"], "row") + p["b"].to(u.dtype)
     return gx.reshape(B, S, n_heads, 4 * (D // n_heads)).float()
 
 
@@ -284,20 +296,19 @@ def slstm_apply(p: Dict, u: torch.Tensor, *, n_heads: int) -> torch.Tensor:
     """Sequential sLSTM over time. u: (B,S,D) -> (B,S,D). On the
     dry-run's DTensors the loop runs per rank on its rows (batch rows
     are independent)."""
-    B, S, D = u.shape
     gx = _slstm_gates(p, u, n_heads)
     wr = p["wr"].float()
     if type(gx) is torch.Tensor:
         y = _slstm_scan(gx, wr)
     else:
         from ..kernels import meta
-        pl = meta.placements(gx, {0: B})
+        pl = meta.placements(gx, {0: gx.shape[0]})
         # wr is replicated: its gradient from the batch shards is partial
         y = meta.run(_slstm_scan, (gx, wr),
                      (pl, meta.restrict(pl, ())), pl,
                      in_grad_placements=(pl, meta.partial_over(pl)))
-    return _rmsnorm_f32(y.reshape(B, S, D), p["norm_w"]).to(u.dtype) \
-        @ p["down"]
+    return project(_rmsnorm_f32(_merge_heads(y), p["norm_w"]).to(u.dtype),
+                   p["down"], "row")
 
 
 def slstm_state_shapes(batch: int, d_model: int, *, n_heads: int) -> Dict:
@@ -315,4 +326,4 @@ def slstm_decode_step(p: Dict, u: torch.Tensor, st: Dict, *,
                              p["wr"].float(), st["c"], st["n"], st["m"],
                              st["h"])
     y = _rmsnorm_f32(h.reshape(B, 1, D), p["norm_w"]).to(u.dtype)
-    return y @ p["down"], {"c": c, "n": n, "m": m, "h": h}
+    return project(y, p["down"], "row"), {"c": c, "n": n, "m": m, "h": h}

@@ -19,6 +19,7 @@ tree has the reference's paths, so the patterns are the reference's.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from dataclasses import dataclass, field
@@ -140,57 +141,67 @@ def constrain(x, *logical_axes: Optional[str]):
 
 def project(x, w, parallel: str):
     """``x @ w`` for a tensor-parallel projection: ``parallel`` is
-    "column" (``w``'s output dim over "ff") or "row" (its input dim).
-    On a plain tensor, or with no rules, it is ``x @ w`` itself.
+    "column" (``w`` is (in, out), its output dim tensor-parallel), "row"
+    (its input dim) or "vocab" (``x @ w.t()`` for a (vocab, in) table,
+    the unembedding, its vocab dim tensor-parallel). On a plain tensor,
+    or with no rules, it is that product itself.
 
     On the dry-run's DTensors it runs per rank (``kernels.meta.run``),
-    forward and both gradients on the local shards, with the placements
-    the rules give, mesh dim by mesh dim:
+    forward and both gradients on the local shards, mesh dim by mesh
+    dim, with ``w``'s placements its parameter's rule gave it (a dim a
+    mesh dim does not divide is gathered) and ``x``'s batch the rules':
 
-    * where "ff" shards ``w``, it keeps that shard; the output is sharded
-      ("column") or partial ("row") until the next ``constrain``;
+    * where ``w``'s tensor-parallel dim is sharded, it keeps that shard;
+      the output is sharded ("column", "vocab") or partial ("row") until
+      the next ``constrain``;
     * where ``x``'s batch is sharded, ``w`` is gathered and its gradient
       is partial there, the pending reduce of a weight gradient;
-    * where "fsdp" shards ``w`` and the batch does not (a batch the data
-      axes do not divide, or a decode step, whose tokens are fewer than
-      the weight's elements and move instead), ``w`` keeps its shard and
-      ``x`` is split to match, its output partial or sharded there.
+    * where ``w``'s other dim is sharded (FSDP) and the batch is not (a
+      batch the data axes do not divide, or a decode step, whose tokens
+      are fewer than the weight's elements and move instead), ``w``
+      keeps its shard and ``x`` is split to match, its output partial or
+      sharded there.
 
     DTensor's own ``matmul`` flattens the token dims, and its backward
     can make a strided shard of them, each of whose redistribution plans
-    is a graph search."""
+    is a graph search; it also replicates products to save bytes."""
+    vocab, col = parallel == "vocab", parallel != "row"
+    mm = (lambda a, b: a @ b.t()) if vocab else (lambda a, b: a @ b)
     rules = current_rules()
     if rules is None or rules.mesh is None:
-        return x @ w
+        return mm(x, w)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
-        return x @ w
+        return mm(x, w)
     from ..kernels import meta
     mesh = rules.mesh
-    col = parallel == "column"
-    ff_dim, fs_dim = (1, 0) if col else (0, 1)
+    # w's tensor-parallel dim, and its other (FSDP) dim
+    tp_dim, fs_dim = (1, 0) if parallel == "column" else (0, 1)
 
-    def over(name, n):
-        """The mesh dims that shard a dim of ``n`` over ``name``."""
-        spec = _divisible(rules.resolve(name), (n,), mesh)
-        return [p.is_shard() for p in spec_to_placements(spec, mesh)]
-    bt, ff = over("batch", x.shape[0]), over("ff", w.shape[ff_dim])
-    fs = over("fsdp", w.shape[fs_dim])
+    def sharding(d):
+        """The mesh dims that shard ``w``'s dim ``d`` (none unless they
+        divide it)."""
+        on = [p.is_shard(d) for p in w.placements]
+        size = math.prod(mesh.size(i) for i, o in enumerate(on) if o)
+        return on if w.shape[d] % size == 0 else [False] * len(on)
+    spec = _divisible(rules.resolve("batch"), x.shape[:1], mesh)
+    bt = [p.is_shard() for p in spec_to_placements(spec, mesh)]
+    tp, fs = sharding(tp_dim), sharding(fs_dim)
     if x.numel() < w.numel():
         bt = [b and not f for b, f in zip(bt, fs)]
-    fs = [f and not b and not t for f, b, t in zip(fs, bt, ff)]
+    fs = [f and not b and not t for f, b, t in zip(fs, bt, tp)]
 
-    def pick(on_batch, on_ff, on_fsdp):
-        return tuple(on_batch if b else on_ff if t else on_fsdp if f
-                     else Replicate() for b, t, f in zip(bt, ff, fs))
+    def pick(on_batch, on_tp, on_fsdp):
+        return tuple(on_batch if b else on_tp if t else on_fsdp if f
+                     else Replicate() for b, t, f in zip(bt, tp, fs))
     R, P, S0, Sl = Replicate(), Partial(), Shard(0), Shard(x.ndim - 1)
-    wpl = pick(R, Shard(ff_dim), Shard(fs_dim))
+    wpl = pick(R, Shard(tp_dim), Shard(fs_dim))
     if col:
         xpl, opl, dxpl = pick(S0, R, Sl), pick(S0, Sl, P), pick(S0, P, Sl)
     else:
         xpl, opl, dxpl = pick(S0, Sl, R), pick(S0, P, Sl), pick(S0, Sl, P)
-    dwpl = pick(P, Shard(ff_dim), Shard(fs_dim))
-    return meta.run(lambda a, b: a @ b, (x, w), (xpl, wpl), opl,
+    dwpl = pick(P, Shard(tp_dim), Shard(fs_dim))
+    return meta.run(mm, (x, w), (xpl, wpl), opl,
                     in_grad_placements=(dxpl, dwpl))
 
 

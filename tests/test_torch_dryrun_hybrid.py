@@ -1,20 +1,22 @@
-"""The hybrid family's per-rank projections on the dry-run's DTensors
-(``sharding.project``): ``in_proj`` / ``out_proj`` of every Mamba2 block
-and the shared block's MLP run ``x @ w`` and both its gradients on the
-local shards, with declared placements, instead of DTensor's ``matmul``,
-whose backward turned a sequence sharded over "model" into a strided
-shard of the flattened token dim (a graph-searched redistribution plan
-each, minutes a multi-pod train cell).
+"""The per-rank projections on the dry-run's DTensors
+(``sharding.project``): every tensor-parallel projection of every family
+(the Mamba2 blocks' ``in_proj`` / ``out_proj``, the attention's ``wq`` /
+``wk`` / ``wv`` / ``wo``, the MLPs, the xLSTM blocks', the unembedding)
+runs ``x @ w`` and both its gradients on the local shards, with declared
+placements, instead of DTensor's ``matmul``, whose backward turned a
+sequence sharded over "model" into a strided shard of the flattened
+token dim (a graph-searched redistribution plan each, minutes a
+multi-pod train cell).
 
 The projection is checked on an 8-rank ("pod", "data", "model") =
 (2, 2, 2) mesh of threads in this process (torch's threaded process
 group: real collectives on real CPU shards), with the rules' layouts of
 ``x`` and of the weight's parameter, FSDP off and on; gathered, the
-output and both gradients are the plain product's bits. A dry-run cell
-of the full-width zamba2-7b pins what the products cost a rank. The
-reduced hybrid's train step is traced on a fake (2, 2, 4) mesh, the
-smallest found on which DTensor's own products plan strided shards. No
-test leaves a default group behind. CPU only."""
+output and both gradients are the plain product's bits. Dry-run cells of
+the full-width zamba2-7b and qwen2-72b pin what the products cost a
+rank. Reduced models' train steps are traced on a fake (2, 2, 4) mesh,
+the smallest found on which DTensor's own products plan strided shards.
+No test leaves a default group behind. CPU only."""
 import threading
 
 import pytest
@@ -173,17 +175,29 @@ def test_project_without_rules_or_dtensors_is_matmul():
             assert torch.equal(project(x, w, "row"), x @ w)
 
 
-def test_reduced_hybrid_train_trace_plans_no_strided_shard(monkeypatch):
-    """The reduced hybrid's train step (forward with remat and backward,
-    as ``build_train_step`` runs them under its rules) on a fake
-    ("pod", "data", "model") = (2, 2, 4) mesh: no redistribution plan
-    DTensor makes has a ``_StridedShard`` in its source or target
-    (counted at the planner, its cache cleared first). Two batch rows a
-    (pod, data) rank do not divide the model axis, so a sequence sharded
-    over it is strided in the flattened token dim: with DTensor's own
-    ``matmul`` for the projections this trace makes 1,560 such plans, a
-    graph search each (the first ~10 s in); on (2, 2, 2) the model axis
-    takes the two rows and no plan is strided either way."""
+# arch -> (config overrides, sequence length, the backward kernel its
+# trace must reach, its calls)
+STRIDED = {"zamba2-7b": ({"n_layers": 2}, 16, "mamba2_scan_bwd", 2),
+           "smollm-135m": ({}, 64, "flash_attention_bwd", 2),
+           "xlstm-125m": ({}, 16, "mlstm_chunkwise_bwd", 2),
+           "whisper-small": ({}, 16, "flash_attention_bwd", 6)}
+
+
+@pytest.mark.parametrize("arch", list(STRIDED))
+def test_reduced_hybrid_train_trace_plans_no_strided_shard(monkeypatch,
+                                                           arch):
+    """A reduced model's train step (forward with remat and backward, as
+    ``build_train_step`` runs them under its rules) on a fake ("pod",
+    "data", "model") = (2, 2, 4) mesh: no redistribution plan DTensor
+    makes has a ``_StridedShard`` in its source or target (counted at
+    the planner, its cache cleared first). Two batch rows a (pod, data)
+    rank do not divide the model axis, so a sequence sharded over it is
+    strided in the flattened token dim. With DTensor's own ``matmul``
+    for the projections these traces make strided plans, a graph search
+    each: the hybrid's in_proj / gate / up 1,560 (the first ~10 s in),
+    the others' from their attention, MLP, xLSTM and unembedding
+    products (counts in CHANGES.md); on (2, 2, 2) the model axis takes
+    the two rows and no plan is strided either way."""
     from torch.distributed.tensor import _redistribute as RD
     from torch.distributed.tensor.placement_types import _StridedShard
 
@@ -200,7 +214,8 @@ def test_reduced_hybrid_train_trace_plans_no_strided_shard(monkeypatch):
         return plan(src, dst, *a, **kw)
     monkeypatch.setattr(RD, "_gen_transform_infos_non_cached", counted)
     RD._gen_transform_infos.cache_clear()
-    cfg = get_config("zamba2-7b").reduced(n_layers=2)
+    over, seq, kernel, calls = STRIDED[arch]
+    cfg = get_config(arch).reduced(**over)
     api = get_api(cfg)
     try:
         with fake_world(16):
@@ -209,7 +224,7 @@ def test_reduced_hybrid_train_trace_plans_no_strided_shard(monkeypatch):
             ts = build_train_step(api, AdamW(), rules=rules, remat=True)
             params = dryrun._distribute(api.param_spec(), ts.param_sh, mesh)
             batch = dryrun._distribute(
-                api.input_specs(ShapeConfig("t", 16, 8, "train")),
+                api.input_specs(ShapeConfig("t", seq, 8, "train")),
                 ts.batch_sh, mesh)
 
             def value_and_grad(params, batch):
@@ -219,7 +234,7 @@ def test_reduced_hybrid_train_trace_plans_no_strided_shard(monkeypatch):
     finally:
         RD._gen_transform_infos.cache_clear()
     assert seen["calls"] > 0 and seen["strided"] == 0
-    assert tr.kernels["mamba2_scan_bwd"]["calls"] == 2
+    assert tr.kernels[kernel]["calls"] == calls
 
 
 def test_dry_run_hybrid_prefill_cell_runs_the_rules_shards():
@@ -228,12 +243,14 @@ def test_dry_run_hybrid_prefill_cell_runs_the_rules_shards():
     32768 tokens (the batch over "data"): every Mamba2 layer's
     ``in_proj`` at its rules' shard of 911 columns and ``out_proj`` at
     448 rows; each shared-block application's ``gate`` / ``up`` at 896
-    columns, ``down`` at 896 rows and ``wo`` at 224; the scan at 7 of
-    112 heads and the attention at 2 of 32. ``wq`` / ``wk`` / ``wv`` and
-    the unembedding run at full width, as DTensor places them (open in
-    ROADMAP C.3). With DTensor's own ``matmul`` for the five products,
-    ``in_proj``, ``gate`` and ``up`` ran at full width and the first
-    scan on every head: 4.6 times these FLOPs."""
+    columns, ``down`` at 896 rows, ``wq`` / ``wk`` / ``wv`` at 224
+    columns and ``wo`` at 224 rows; the unembedding at 2000 of the 32000
+    vocab rows; the scan at 7 of 112 heads and the attention at 2 of 32.
+    With DTensor's own ``matmul`` for ``wq`` / ``wk`` / ``wv`` and the
+    unembedding, those four ran at full width on every "model" rank:
+    2.3 times these FLOPs; with it for every product, ``in_proj``,
+    ``gate`` and ``up`` too, and the first scan on every head: 10.3
+    times."""
     from repro_torch.models.transformer import n_shared_apps
     res = dryrun.run_cell("zamba2-7b", "prefill_32k", device_type="cpu")
     assert res["status"] == "ok", res.get("error")
@@ -244,10 +261,10 @@ def test_dry_run_hybrid_prefill_cell_runs_the_rules_shards():
     d_inner, nh = cfg.ssm_expand * D, cfg.ssm_expand * D // cfg.ssm_headdim
     hd = D // cfg.n_heads
     in_proj = 2 * d_inner + 2 * cfg.ssm_state + nh
+    qkvo = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd
     L, A = cfg.n_layers, n_shared_apps(cfg)
     cols = (L * (in_proj + d_inner) // tp
-            + A * ((3 * cfg.d_ff + cfg.n_heads * hd) // tp + 3 * D)
-            + cfg.vocab_size)
+            + A * (3 * cfg.d_ff + qkvo) // tp + cfg.vocab_size // tp)
     scan = L * scan_flops(rows, nh // tp, S, cfg.ssm_headdim, cfg.ssm_state)
     attn = A * attention_flops(rows, cfg.n_heads // tp, S, S, hd, True,
                                cfg.sliding_window)
@@ -257,3 +274,34 @@ def test_dry_run_hybrid_prefill_cell_runs_the_rules_shards():
           f"{expect:.4f}")
     assert 0.98 * expect <= res["model_flops_ratio"] <= 1.02 * expect
     assert res["kernels"]["mamba2_scan"]["flops"] == scan
+
+
+def test_dry_run_dense_prefill_cell_runs_the_rules_shards():
+    """qwen2-72b x prefill_32k on the 16x16 mesh (64 heads and the
+    152064-row vocab both divide the model axis): ``model_flops_ratio``
+    within 2% of a closed form of what a rank runs, 2 sequences of 32768
+    tokens (the batch over "data"): every layer's ``wq`` / ``wo`` at 512
+    of 8192 columns / rows, ``wk`` / ``wv`` at 64 of 1024 columns,
+    ``gate`` / ``up`` / ``down`` at 1848 of 29568; the unembedding at
+    9504 vocab rows; the attention on all 64 heads, since its 8 KV heads
+    do not divide the model axis and the kernel's rule keeps q in k's
+    layout (open in ROADMAP C.3). DTensor's own ``matmul`` placed these
+    products at the same shards: the ratio is the same with it."""
+    res = dryrun.run_cell("qwen2-72b", "prefill_32k", device_type="cpu")
+    assert res["status"] == "ok", res.get("error")
+    cfg = get_config("qwen2-72b")
+    shape = next(s for s in SHAPES if s.name == "prefill_32k")
+    tp = dp = 16
+    rows, S, D, hd = shape.global_batch // dp, shape.seq_len, cfg.d_model, \
+        cfg.hd
+    qkvo = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    L = cfg.n_layers
+    cols = L * (3 * cfg.d_ff + qkvo) // tp + cfg.vocab_size // tp
+    attn = L * attention_flops(rows, cfg.n_heads, S, S, hd, True,
+                               cfg.sliding_window)
+    per_rank = 2 * rows * S * D * cols + attn
+    expect = res["model_flops"] / (tp * dp * per_rank)
+    print(f"model_flops_ratio {res['model_flops_ratio']:.4f}, closed form "
+          f"{expect:.4f}")
+    assert 0.98 * expect <= res["model_flops_ratio"] <= 1.02 * expect
+    assert res["kernels"]["flash_attention"]["flops"] == attn

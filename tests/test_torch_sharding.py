@@ -330,8 +330,9 @@ def test_hybrid_with_rules_off_is_the_plain_product(monkeypatch, over):
     """With no rules, the hybrid's and the plain ssm's per-rank
     projections (``sharding.project``) are ``x @ w``: a reduced zamba2's
     logits, loss and gradients are bitwise those of the same model with
-    every projection written ``x @ w`` and the hints taken out."""
-    from repro_torch.models import layers, ssm, transformer
+    every projection written ``x @ w`` (the unembedding ``x @ w.t()``)
+    and the hints taken out."""
+    from repro_torch.models import attention, layers, ssm, transformer
     cfg = get_config("zamba2-7b").reduced(**over)
     api = get_api(cfg)
     params = api.init_params(torch.Generator().manual_seed(0), device="cpu")
@@ -342,10 +343,11 @@ def test_hybrid_with_rules_off_is_the_plain_product(monkeypatch, over):
         return (transformer.forward(cfg, params, batch["tokens"])[0],
                 api.value_and_grad(params, batch))
     want = run()
-    for mod in (layers, ssm, transformer):
+    for mod in (attention, layers, ssm, transformer):
         monkeypatch.setattr(mod, "constrain", lambda x, *a: x)
-    for mod in (layers, ssm):
-        monkeypatch.setattr(mod, "project", lambda x, w, parallel: x @ w)
+    for mod in (attention, layers, ssm):
+        monkeypatch.setattr(mod, "project", lambda x, w, parallel: x @ (
+            w.t() if parallel == "vocab" else w))
     (logits, ((loss, _), grads)), (logits2, ((loss2, _), grads2)) = \
         want, run()
     assert torch.equal(logits, logits2) and torch.equal(loss, loss2)
