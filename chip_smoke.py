@@ -3957,14 +3957,16 @@ def phase_config_sweep() -> dict:
 DRYRUN_PEAK_BAND = (0.95, 1.10)
 DRYRUN_STEPS = 5
 DRYRUN_DEVICE = "cuda"           # a CPU rehearsal sets "cpu"
+DRYRUN_VOCAB_CELLS = ("smollm-135m", "xlstm-125m")
 FLAT_SHAPE = (2055, 65536)       # the multi-host flat buffer, f32
 
 
 def phase_dryrun_check() -> dict:
     """29. The dry-run of smollm-135m x train_4k (dp over model, 16x16)
-    held against rank 0's program on the card; then int8 compression on
-    the card against the CPU, and the perf sentry. Returns the step's
-    launches."""
+    held against rank 0's program on the card; the vocab-sharded
+    smollm-135m and xlstm-125m x train_4k cells on 2x16x16 traced with
+    this machine's torch; then int8 compression on the card against the
+    CPU, and the perf sentry. Returns the step's launches."""
     import gc
     import statistics
     import torch
@@ -4059,6 +4061,20 @@ def phase_dryrun_check() -> dict:
         fail(f"dryrun: loss {loss}")
     del params, opt_state, batch
     torch.cuda.empty_cache()
+
+    # the vocab-sharded multi-pod train cells, with this machine's torch
+    # (its DTensor had no rule for the vocab-sharded embedding lookup)
+    for arch in DRYRUN_VOCAB_CELLS:
+        t1 = time.perf_counter()
+        cell = dryrun.run_cell(arch, "train_4k", multi_pod=True)
+        print(f"dryrun: {arch} x train_4k on 2x16x16: {cell['status']} in "
+              f"{time.perf_counter() - t1:.1f} s")
+        if cell["status"] != "ok":
+            fail(f"dryrun: {arch} x train_4k on 2x16x16: "
+                 f"{cell.get('error')}\n{cell.get('trace', '')}")
+        print(f"dryrun: {arch} x train_4k on 2x16x16 peak "
+              f"{cell['peak_bytes']} bytes a GPU")
+        print(f"dryrun: {arch} x train_4k on 2x16x16 fits {cell['fits']}")
 
     # int8 compression with error feedback at the flat buffer's shape
     gen = torch.Generator().manual_seed(0)

@@ -302,13 +302,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``attention_ref``; CUDA tensors launch the Hopper kernel, through
     ``FlashAttentionFn`` where autograd needs their gradient. DTensors
     (the dry-run's meta shards, or CPU shards) run it per rank."""
-    # batch and heads stay sharded where GQA's groups divide; k and v
-    # (and out) take q's layout
-    pl = meta.placements(q, {0: q.shape[0], 1: k.shape[1]})
-    if pl is not None:
-        return meta.run(lambda *t: flash_attention(
-            *t, causal=causal, sliding_window=sliding_window),
-            (q, k, v), (pl, pl, pl), pl)
+    if meta._is_dtensor(q):
+        return meta.run_heads(lambda *t: flash_attention(
+            *t, causal=causal, sliding_window=sliding_window), q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal,
                              sliding_window=sliding_window)

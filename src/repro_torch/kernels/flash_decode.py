@@ -94,11 +94,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, hd = q.shape
     Kh, W = k.shape[1], k.shape[2]
     if q.device.type == "meta":
-        # batch, and heads where the KV heads divide; a sharded window is
+        # batch, and q's heads where they divide; a sharded window is
         # gathered (the kernel merges its splits inside one launch)
-        pl = meta.placements(q, {0: B, 1: Kh})
-        return meta.run(_meta, (q, k, v, valid),
-                        (pl, pl, pl, meta.restrict(pl, (0,))), pl)
+        return meta.run_heads(_meta, q, k, v, valid)
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in (k, v, valid)):
         raise ValueError(f"flash_decode: tensors on {q.device}, {k.device},"

@@ -15,11 +15,15 @@ On DTensor inputs the rule runs per rank through ``local_map``, on
 placements the kernel accepts: batch over whichever mesh axes shard it,
 heads over an axis where the head counts divide, every other sharded dim
 gathered first (DTensor inserts, and the dry-run reports, the
-collective). The work it reports is then one rank's.
+collective). Attention keeps q's heads sharded where the query heads
+divide the axis and the KV heads do not, k and v replicated there, each
+rank reading the KV heads its query heads use (``run_heads``). The work
+it reports is then one rank's.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Dict, List, Optional
 
@@ -133,3 +137,63 @@ def partial_over(pl, keep=()):
     from torch.distributed.tensor import Partial, Replicate, Shard
     return tuple((p if p.dim in keep else Partial())
                  if isinstance(p, Shard) else Replicate() for p in pl)
+
+
+def local_range(t, pl, dim: int):
+    """(first, count): where along ``dim`` this rank's shard of DTensor
+    ``t``, laid out by ``pl``, lies (the rank's coordinate read from
+    ``t``'s mesh)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, pl)
+    return offset[dim], shape[dim]
+
+
+def own_rows(idx, t, pl, dim: int):
+    """Global indices ``idx`` along ``dim`` of DTensor ``t`` as indices
+    into this rank's shard of it (``pl``), clamped into the shard, and a
+    mask of those that fall inside it."""
+    lo, n = local_range(t, pl, dim)
+    idx = idx.long() - lo
+    return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+
+def run_heads(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` for grouped-query attention on DTensors,
+    per rank: q ``(B, H, ...)``, k / v ``(B, Kh, ...)`` with query head
+    ``h`` reading KV head ``h // (H // Kh)``, each of ``rest`` batch-major
+    (its other dims gathered). The batch stays sharded where it divides.
+
+    * Where q's heads are sharded over mesh dims that the KV heads
+      divide too, k and v are sharded alike.
+    * Where only the query heads divide them, q (and the output) keep
+      that shard, k and v are replicated there, and each rank slices the
+      contiguous KV heads that its query heads read; their gradients are
+      partial there. This needs the rank's query heads to cover whole
+      groups or lie inside one.
+    * Otherwise the heads are gathered.
+
+    A plain tensor runs ``fn`` itself."""
+    if not _is_dtensor(q):
+        return fn(q, k, v, *rest)
+    from torch.distributed.tensor import Partial, Shard
+    B, H, Kh = q.shape[0], q.shape[1], k.shape[1]
+    qpl = placements(q, {0: B, 1: H})
+    heads = [i for i, p in enumerate(qpl) if p == Shard(1)]
+    n = math.prod(q.device_mesh.size(i) for i in heads)
+    Hl, g = H // n, H // Kh
+    if Kh % n == 0 or (Hl % g and g % Hl):
+        pl = placements(q, {0: B, 1: Kh})
+        return run(fn, (q, k, v, *rest),
+                   (pl, pl, pl, *(restrict(pl, (0,)) for _ in rest)), pl)
+    bpl = restrict(qpl, (0,))
+    gpl = tuple(Partial() if i in heads else p for i, p in enumerate(bpl))
+    nk = max(Hl // g, 1)
+
+    def local(ql, kl, vl, *r):
+        k0 = local_range(q, qpl, 1)[0] // g
+        return fn(ql, kl[:, k0:k0 + nk], vl[:, k0:k0 + nk], *r)
+    return run(local, (q, k, v, *rest),
+               (qpl, bpl, bpl, *(bpl for _ in rest)), qpl,
+               in_grad_placements=(qpl, gpl, gpl, *(bpl for _ in rest)))

@@ -93,17 +93,47 @@ def embed_apply(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_shards(emb, tokens):
-    """``emb[tokens]`` on the dry-run's DTensors. A replicated table is
-    read per rank at its own token rows (``local_map``: DTensor has no
-    rule for an index sharded over two mesh axes, the data-parallel-only
-    layout's); a vocab-sharded one takes DTensor's own lookup."""
+    """``emb[tokens]`` on the dry-run's DTensors, per rank (``local_map``:
+    DTensor has no rule for an index sharded over two mesh axes, the
+    data-parallel-only layout's, and on some versions none for a table
+    sharded on its rows). A replicated table is read at the rank's own
+    token rows. A vocab-sharded one keeps its rows' shard: each rank
+    reads its own rows, a token outside them reads zero, and the output
+    is partial over the vocab's mesh dims until ``embed_apply`` reduces
+    it; the table's gradient is scattered into the rank's own rows. An
+    FSDP shard of the table's other dim is gathered where the tokens'
+    batch is sharded, unless the tokens are fewer than the table's rows
+    (a decode step: the tokens move, and the output is sharded there as
+    the table is, as ``sharding.project`` does)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from ..kernels import meta
-    if any(p.is_shard() for p in emb.placements):
-        return emb[tokens]
+    V = emb.shape[0]
     pl = tokens.placements
-    return meta.run(lambda e, t: e[t], (emb, tokens),
-                    (emb.placements, pl), pl,
-                    in_grad_placements=(meta.partial_over(pl), pl))
+    vocab = [p.is_shard(0) for p in emb.placements]
+    if V % math.prod(emb.device_mesh.size(i)
+                     for i, on in enumerate(vocab) if on):
+        vocab = [False] * len(vocab)
+    if not any(vocab):
+        return meta.run(lambda e, t: e[t], (emb, tokens),
+                        (emb.placements, pl), pl,
+                        in_grad_placements=(meta.partial_over(pl), pl))
+    R, d = Replicate(), tokens.ndim            # d: the output's model dim
+    fsdp = [p.is_shard(1) and not v and (tokens.numel() < V
+                                         or not t.is_shard())
+            for p, v, t in zip(emb.placements, vocab, pl)]
+    # per mesh dim: the table's, the tokens', the output's and the
+    # table gradient's placements
+    epl, tpl, opl, gpl = zip(*(
+        (Shard(0), R, Partial(), Shard(0)) if v else
+        (Shard(1), R, Shard(d), Shard(1)) if f else
+        (R, t, t, Partial() if t.is_shard() else R)
+        for v, f, t in zip(vocab, fsdp, pl)))
+
+    def lookup(e, t):
+        t, inside = meta.own_rows(t, emb, epl, 0)
+        return torch.where(inside[..., None], e[t], 0)
+    return meta.run(lookup, (emb, tokens), (epl, tpl), opl,
+                    in_grad_placements=(gpl, tpl))
 
 
 def unembed_apply(emb_or_head: torch.Tensor,

@@ -27,47 +27,83 @@ from . import encdec, transformer
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy in f32."""
+    if type(logits) is not torch.Tensor:       # the dry-run's DTensors
+        return _xent_shards(logits, targets)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    if type(logits) is not torch.Tensor:       # the dry-run's DTensors
-        gold = _gather_shards(logits, targets.long()[..., None])
-        return torch.mean(lse[..., None] - gold)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
 
 
-def _gather_shards(x, idx):
-    """``torch.gather(x, -1, idx)`` on DTensors, the gathered dim kept.
-    Logits whose vocab dim is not sharded are gathered per rank
-    (``local_map``: DTensor has no gather rule over two mesh axes of
-    one dim, the data-parallel-only layout's); vocab-sharded ones take
-    ``_GatherLast``."""
+def _xent_shards(logits, targets):
+    """``_xent`` on DTensors. Vocab-sharded logits take ``_VocabXent``,
+    which never builds the whole vocabulary. Others are gathered per rank
+    (``local_map``: DTensor has no gather rule over two mesh axes of one
+    dim, the data-parallel-only layout's)."""
     from ..kernels import meta
-    from torch.distributed.tensor import Shard
-    if any(isinstance(p, Shard) and p.dim == x.ndim - 1
-           for p in x.placements):
-        return _GatherLast.apply(x, idx)
-    pl = x.placements
-    return meta.run(lambda a, i: torch.gather(a, -1, i), (x, idx),
-                    (pl, pl), pl)
+    if any(p.is_shard(logits.ndim - 1) for p in logits.placements):
+        return torch.mean(_VocabXent.apply(logits, targets))
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    pl = logits.placements
+    gold = meta.run(lambda a, i: torch.gather(a, -1, i),
+                    (logits, targets.long()[..., None]), (pl, pl), pl)
+    return torch.mean(lse[..., None] - gold)
 
 
-class _GatherLast(torch.autograd.Function):
-    """``torch.gather(x, -1, idx)`` on DTensors, its dim kept (a
-    vocab-sharded gather carries a mask of that shape). Its gradient
-    starts from ``zeros_like(x)``, laid out as x is: the native formula's
-    ``new_zeros`` of x's size makes DTensor build the gradient
-    replicated, at the full global size."""
+class _VocabXent(torch.autograd.Function):
+    """Each token's ``logsumexp(x) - x[target]`` in f32, for logits ``x``
+    (B, S, V) whose vocab dim is sharded, per rank on the shards: the
+    rank's max, reduced by MAX over the vocab's mesh dims (detached: it
+    only steadies the sum); then the rank's sum of ``exp(x - max)`` and
+    its gold logit (the rank whose rows hold the target reads it, the
+    others give 0), reduced by SUM in one collective. The gradient is
+    ``(softmax - onehot) * g`` on each rank's shard. The collectives are
+    DTensor's, each from a ``Partial`` output made ``Replicate``."""
 
     @staticmethod
-    def forward(ctx, x, idx):
-        ctx.save_for_backward(x, idx)
-        return torch.gather(x, -1, idx)
+    def forward(ctx, x, targets):
+        from torch.distributed.tensor import Partial
+        from ..kernels import meta
+        last = x.ndim - 1
+        xpl = meta.placements(x, {0: x.shape[0], last: x.shape[last]})
+        bpl = meta.restrict(xpl, (0,))            # the batch only
+        mesh = x.device_mesh
+
+        def partial(op):
+            return tuple(Partial(op) if p.is_shard(last) else b
+                         for p, b in zip(xpl, bpl))
+
+        def stats(a, m, t):
+            # one f32 tensor of the shard's size (a - m promotes to f32),
+            # exponentiated in place
+            t, inside = meta.own_rows(t, x, xpl, last)
+            gold = torch.gather(a, -1, t[..., None])[..., 0].float()
+            e = (a - m[..., None]).exp_()
+            return torch.stack([e.sum(-1), torch.where(inside, gold, 0)],
+                               dim=-1)
+        m = meta.run(lambda a: a.amax(-1).float(), (x,), (xpl,),
+                     partial("max")).redistribute(mesh, bpl)
+        s = meta.run(stats, (x, m, targets), (xpl, bpl, bpl),
+                     partial("sum")).redistribute(mesh, bpl)
+        lse = m + torch.log(s[..., 0])
+        ctx.save_for_backward(x, targets, lse)
+        ctx.pl = xpl, bpl
+        return lse - s[..., 1]
 
     @staticmethod
     def backward(ctx, g):
-        x, idx = ctx.saved_tensors
-        return torch.zeros_like(x).scatter_add(-1, idx, g), None
+        from ..kernels import meta
+        x, targets, lse = ctx.saved_tensors
+        xpl, bpl = ctx.pl
+
+        def grad(a, t, l, gl):
+            p = (a - l[..., None]).exp_()                 # the softmax
+            t, inside = meta.own_rows(t, x, xpl, x.ndim - 1)
+            p.scatter_add_(-1, t[..., None], -inside[..., None].float())
+            return p.mul_(gl[..., None]).to(a.dtype)
+        return meta.run(grad, (x, targets, lse, g), (xpl, bpl, bpl, bpl),
+                        xpl), None
 
 
 @dataclass(frozen=True)

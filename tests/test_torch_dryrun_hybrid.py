@@ -283,10 +283,10 @@ def test_dry_run_dense_prefill_cell_runs_the_rules_shards():
     tokens (the batch over "data"): every layer's ``wq`` / ``wo`` at 512
     of 8192 columns / rows, ``wk`` / ``wv`` at 64 of 1024 columns,
     ``gate`` / ``up`` / ``down`` at 1848 of 29568; the unembedding at
-    9504 vocab rows; the attention on all 64 heads, since its 8 KV heads
-    do not divide the model axis and the kernel's rule keeps q in k's
-    layout (open in ROADMAP C.3). DTensor's own ``matmul`` placed these
-    products at the same shards: the ratio is the same with it."""
+    9504 vocab rows; the attention on 4 of the 64 query heads, q's own
+    shard (its 8 KV heads do not divide the model axis: each rank reads
+    the one its 4 heads share). DTensor's own ``matmul`` placed these
+    products at the same shards."""
     res = dryrun.run_cell("qwen2-72b", "prefill_32k", device_type="cpu")
     assert res["status"] == "ok", res.get("error")
     cfg = get_config("qwen2-72b")
@@ -297,7 +297,7 @@ def test_dry_run_dense_prefill_cell_runs_the_rules_shards():
     qkvo = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd
     L = cfg.n_layers
     cols = L * (3 * cfg.d_ff + qkvo) // tp + cfg.vocab_size // tp
-    attn = L * attention_flops(rows, cfg.n_heads, S, S, hd, True,
+    attn = L * attention_flops(rows, cfg.n_heads // tp, S, S, hd, True,
                                cfg.sliding_window)
     per_rank = 2 * rows * S * D * cols + attn
     expect = res["model_flops"] / (tp * dp * per_rank)

@@ -242,8 +242,9 @@ def test_meta_rule_matches_plain_shapes_and_dtypes(case):
 def test_meta_attention_backward_and_dtensor_inputs():
     """The attention's meta rule under autograd (its backward reports
     2.5x the forward's products) and on DTensors through ``local_map``:
-    heads stay sharded where the KV heads divide, the work is one
-    rank's."""
+    heads stay sharded where the KV heads divide, and q's stay sharded
+    where only the query heads do (k and v replicated, each rank reading
+    the KV head its query heads share); the work is one rank's."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     q = torch.empty(2, 4, 8, 16, device="meta", requires_grad=True)
     kv = torch.empty(2, 2, 8, 16, device="meta", requires_grad=True)
@@ -268,11 +269,18 @@ def test_meta_attention_backward_and_dtensor_inputs():
         assert out.shape == qd.shape and tuple(out.placements) == tuple(pl)
         assert work["flash_attention"]["flops"] == FA.attention_flops(
             2, 2, 64, 64, 16, True, None)
-        # 32 query heads over 8 KV heads: KV heads do not divide 16, so
-        # the heads are gathered first
+        # 32 query heads over 8 KV heads: the KV heads do not divide 16,
+        # so q keeps its 2 heads a rank and k / v come replicated, of
+        # which the rank reads the one KV head its 2 heads share
         kd8 = dt((2, 8, 64, 16), [Shard(0), Replicate()], (32, 8, 64, 16))
-        out = FA.flash_attention(qd, kd8, kd8)
-        assert tuple(out.placements) == (Shard(0), Replicate())
+        with kmeta.count_work() as work:
+            out = FA.flash_attention(qd, kd8, kd8)
+        assert tuple(out.placements) == tuple(pl)
+        assert work["flash_attention"]["flops"] == FA.attention_flops(
+            2, 2, 64, 64, 16, True, None)
+        # f32 bytes of q, of k and v (one KV head each), of the output
+        assert work["flash_attention"]["bytes"] == 4 * 64 * 16 * (
+            2 * 2 + 2 * 2 * 1 + 2 * 2)
 
 
 def test_count_work_sees_calls_on_other_threads():
