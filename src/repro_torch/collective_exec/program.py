@@ -32,7 +32,8 @@ over the transport on the host copy of the flat buffer
 ``build_allreduce_program`` is the bare data-plane program (no model):
 it all-reduces a stacked per-rank value through the same bucket path.
 
-A step's three parts are ``torch.profiler`` ranges (``gradsync.grads``:
+A step's three parts are ``torch.profiler`` ranges marked on the device
+too (``obs.timeline.span(..., device=True)``; ``gradsync.grads``:
 every rank's forward, backward and flatten; ``gradsync.sync``;
 ``gradsync.update``), so a profile splits device time among them.
 """
@@ -42,9 +43,9 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..core.collective import PhaserCollective, RankStack
+from ..obs.timeline import span
 from ..utils import tree_map
 from .buckets import BucketLayout, make_layout
 from .executor import emit_round_grid, execute_flat, execute_flat_pipelined
@@ -196,9 +197,9 @@ def build_gradsync_program(api, opt, pc: PhaserCollective, *,
         auxes = [torch.zeros((), device=stack.device) for _ in range(n)]
         synced = None
         for k in range(microbatches):
-            with record_function("gradsync.grads"):
+            with span("gradsync.grads", device=True):
                 rank_grads(params, shards, alive, k, losses, auxes)
-            with record_function("gradsync.sync"):
+            with span("gradsync.sync", device=True):
                 red = sync(bufs[0])
             if synced is None:
                 # the next microbatch refills the buffer, which a
@@ -208,7 +209,7 @@ def build_gradsync_program(api, opt, pc: PhaserCollective, *,
             else:
                 synced = [s + t for s, t in zip(synced, red)]
         last.update(stacked=bufs[0], reduced=synced)
-        with record_function("gradsync.update"):
+        with span("gradsync.update", device=True):
             grads, count = unflatten_rank0(synced)
             inv = 1.0 / torch.clamp(count, min=1.0)
             if microbatches > 1:
@@ -309,7 +310,7 @@ def build_hier_gradsync_program(api, opt, pc_proc: PhaserCollective, *,
                                     device=stack.device))
         alive = alive.to(device=stack.device, dtype=torch.float32)
         losses = []
-        with record_function("gradsync.grads"):
+        with span("gradsync.grads", device=True):
             for r in range(m):
                 a = alive[r]
                 (_, met), grads = api.value_and_grad(
@@ -317,14 +318,14 @@ def build_hier_gradsync_program(api, opt, pc_proc: PhaserCollective, *,
                 grads = tree_map(lambda g: g * a.to(g.dtype), grads)
                 layout.flatten_into(bufs[0][r], grads, a)
                 losses.append(met["loss"] * a)
-        with record_function("gradsync.sync"):
+        with span("gradsync.sync", device=True):
             red = execute_flat(bufs[0], pc_local, stack)
         last.update(stacked=bufs[0], reduced=red)
         # every local rank holds the same locally reduced buffer
         return red[0], {"loss": torch.stack(losses), "alive": alive}
 
     def apply(params, opt_state, flat: torch.Tensor):
-        with record_function("gradsync.update"):
+        with span("gradsync.update", device=True):
             grads, count = layout.unflatten(flat)
             inv = 1.0 / torch.clamp(count, min=1.0)
             grads = tree_map(lambda g: g * inv.to(g.dtype), grads)

@@ -9,7 +9,9 @@ control-plane-only worker processes stay light:
 * ``metrics``  — typed counters/gauges/histograms in per-process
   ``MetricsRegistry`` shards, merged at the coordinator.
 * ``timeline`` — wall-clock spans + logical schedule grids exported as
-  Chrome-trace/Perfetto JSON and JSONL.
+  Chrome-trace/Perfetto JSON and JSONL; ``timeline.span`` marks the
+  program's own work in a ``torch.profiler`` trace and on the active
+  timeline at once.
 
 The always-on layer (DESIGN.md §14) rides on top:
 

@@ -17,12 +17,20 @@ The module-level ``activate``/``current`` hook is how trace-time code
 deep inside the executors reaches the live timeline without threading
 it through every builder signature; when no timeline is active the
 hooks cost one ``None`` check.
+
+``span(name)`` is the program's one way to mark a stretch of its work:
+the same span goes to the ``torch.profiler`` trace (on the profiler's
+clock, beside the device's kernels) while a profiler records, and to
+the active timeline, if any. A span is a host range by default; one
+opened with ``device=True`` is also marked on the device's timeline
+around the kernels launched directly inside it (see ``span``).
 """
 from __future__ import annotations
 
 import json
+import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional
 
 # Chrome-trace pid rows for logical (schedule-structure) events
@@ -110,6 +118,70 @@ def deactivate() -> None:
 
 def current() -> Optional[Timeline]:
     return _ACTIVE
+
+
+# ---------------------------------------------------------------------------
+# spans: the profiler's ranges and the active timeline's host spans
+# ---------------------------------------------------------------------------
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording: torch's own flag, read
+    without importing torch (False where torch is not loaded)."""
+    p = sys.modules.get("torch.autograd.profiler")
+    return p is not None and p._is_profiler_enabled
+
+
+# the span of a process nobody is watching: enters nothing
+_OFF = nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "args", "tl", "rf", "t")
+
+    def __init__(self, name, device, args, prof, tl):
+        self.name, self.args, self.tl = name, args, tl
+        self.rf = None
+        if prof:
+            if device:
+                self.rf = sys.modules["torch.autograd.profiler"] \
+                    .record_function(name)
+            else:
+                self.rf = sys.modules["torch"]._C._profiler \
+                    ._RecordFunctionFast(name)
+
+    def __enter__(self):
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.tl is not None:
+            self.t = self.tl.now()
+        return None
+
+    def __exit__(self, *exc):
+        if self.tl is not None:
+            self.tl.complete(self.name, self.t, args=self.args)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, *, device: bool = False, **args):
+    """A context manager around one stretch of the program's work.
+
+    While a ``torch.profiler`` records, it opens a range named ``name``
+    in the profile. By default that range is a host range alone (an op
+    record, which the profiler does not mirror on the device). With
+    ``device=True`` it is a ``record_function`` range, which the profiler
+    also marks on the device's timeline around the kernels launched
+    directly inside it: only for ranges whose device time a reading
+    splits out (``gradsync.*``, ``pipeline.*``), since a reduction that
+    does not know the name takes such a mark for a kernel. While a
+    timeline is active, the span is also one of its host events (with
+    ``args``). With neither, it costs the flag read and the ``None``
+    check and enters nothing."""
+    prof = profiling()
+    tl = _ACTIVE
+    if not prof and tl is None:
+        return _OFF
+    return _Span(name, device, args, prof, tl)
 
 
 # ---------------------------------------------------------------------------

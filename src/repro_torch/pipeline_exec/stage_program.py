@@ -39,7 +39,8 @@ stage's chunks are row slices of the stacked blocks, so there is no
 shard to keep contiguous and ``bind_state`` / ``readout_state`` are the
 identity (their round trip is trivially bitwise).
 
-A step's parts are ``torch.profiler`` ranges: ``pipeline.fwd`` (a
+A step's parts are ``torch.profiler`` ranges marked on the device too
+(``obs.timeline.span(..., device=True)``): ``pipeline.fwd`` (a
 forward wave), ``pipeline.bwd`` (a backward wave, recompute included),
 ``gradsync.sync`` and ``gradsync.update``. Building a program puts the
 schedule's wave grid and the sync's round grid on the active timeline.
@@ -50,7 +51,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..collective_exec.buckets import make_layout
 from ..collective_exec.executor import (emit_round_grid, execute_flat,
@@ -59,6 +59,7 @@ from ..collective_exec.program import (OVERLAP_MODES, _shard,
                                        reduce_worker_metrics)
 from ..core.collective import PhaserCollective, RankStack
 from ..obs import timeline as obs_timeline
+from ..obs.timeline import span
 from ..utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .schedule import PipelineSchedule, derive_interleaved
 
@@ -214,7 +215,7 @@ def build_pipeline_program(api, opt, pc: PhaserCollective, *,
 
         for kind, w in sched.waves:
             if kind == "F":
-                with record_function("pipeline.fwd"):
+                with span("pipeline.fwd", device=True):
                     # static, as in the reference: only stage 0 consumes
                     # the embedding, and only when its item is group 0
                     we = (0 <= w < v * M) and (w // S) % v == 0
@@ -239,7 +240,7 @@ def build_pipeline_program(api, opt, pc: PhaserCollective, *,
                         acts[s][j][m % R] = y
                     fwd_reg = new
             else:
-                with record_function("pipeline.bwd"):
+                with span("pipeline.bwd", device=True):
                     r0 = w - (S - 1)
                     we = (0 <= r0 < v * M) and \
                         (v - 1) - (r0 // S) % v == 0
@@ -347,9 +348,9 @@ def build_pipeline_program(api, opt, pc: PhaserCollective, *,
             for s in range(S):
                 layout.flatten_into(buf[r, s], {
                     **g_io, "blocks": local_blocks(g_blocks, s)}, a)
-        with record_function("gradsync.sync"):
+        with span("gradsync.sync", device=True):
             red = sync(buf)
-        with record_function("gradsync.update"):
+        with span("gradsync.update", device=True):
             rows = [layout.unflatten(red[s]) for s in range(S)]
             inv = 1.0 / torch.clamp(rows[0][1], min=1.0)
             rows = [tree_map(lambda g: g * inv.to(g.dtype), t)

@@ -59,6 +59,7 @@ import torch
 
 from ..models.registry import ModelAPI
 from ..obs.metrics import MetricsRegistry
+from ..obs.timeline import span
 from ..runtime_elastic.elastic_phaser import ElasticPhaserRuntime
 
 
@@ -207,13 +208,16 @@ class ServeEngine:
         if tokens.shape not in self._prefill_shapes:
             self._prefill_shapes.add(tokens.shape)
             self.metrics.inc("serve.prefill.traces")
-        logits, caches = self.api.prefill_full_fn(
-            self.params, {"tokens": self._to_device(tokens)})
-        self._splice_prefill(caches, [s for s, _ in group], lengths)
-        # next token at each request's own last REAL position
-        last = logits[torch.arange(G, device=self.device),
-                      torch.tensor(lengths, device=self.device) - 1]
-        nxt = torch.argmax(last, dim=-1).cpu().numpy()
+        with span("serve.prefill"):
+            logits, caches = self.api.prefill_full_fn(
+                self.params, {"tokens": self._to_device(tokens)})
+        with span("serve.splice"):
+            self._splice_prefill(caches, [s for s, _ in group], lengths)
+        with span("serve.first_read"):
+            # next token at each request's own last REAL position
+            last = logits[torch.arange(G, device=self.device),
+                          torch.tensor(lengths, device=self.device) - 1]
+            nxt = torch.argmax(last, dim=-1).cpu().numpy()
         for g, (slot, req) in enumerate(group):
             self._occupy(slot, req, int(nxt[g]), lengths[g])
 
@@ -261,11 +265,14 @@ class ServeEngine:
         if tokens.shape not in self._prefill_state_shapes:
             self._prefill_state_shapes.add(tokens.shape)
             self.metrics.inc("serve.prefill_state.traces")
-        logits, gstate = self.api.prefill_state_fn(
-            self.params, self._to_device(tokens), self._to_device(pad_lens),
-            window=self.window)
-        self._splice_state_group(gstate, [s for s, _ in group])
-        nxt = torch.argmax(logits[:G], dim=-1).cpu().numpy()
+        with span("serve.prefill"):
+            logits, gstate = self.api.prefill_state_fn(
+                self.params, self._to_device(tokens),
+                self._to_device(pad_lens), window=self.window)
+        with span("serve.splice"):
+            self._splice_state_group(gstate, [s for s, _ in group])
+        with span("serve.first_read"):
+            nxt = torch.argmax(logits[:G], dim=-1).cpu().numpy()
         for g, (slot, req) in enumerate(group):
             self._occupy(slot, req, int(nxt[g]), lengths[g])
 
@@ -311,7 +318,8 @@ class ServeEngine:
             self.metrics.observe("serve.admit.queue_wait_seconds",
                                  time.perf_counter() - req.t_submit)
         req.out.append(first_tok)
-        self.slot_key[slot] = self.gate.request_join()
+        with span("serve.join"):
+            self.slot_key[slot] = self.gate.request_join()
         self.slot_req[slot] = req
         self.slot_pos[slot] = length
         if len(req.out) >= req.max_new:
@@ -323,7 +331,8 @@ class ServeEngine:
         slot is reclaimed for the next boundary's refill."""
         self.finished.append(self.slot_req[slot])
         self.metrics.inc("serve.retired")
-        self.gate.request_leave(self.slot_key[slot])
+        with span("serve.leave"):
+            self.gate.request_leave(self.slot_key[slot])
         self.slot_key[slot] = None
         self.slot_req[slot] = None
 
@@ -338,17 +347,39 @@ class ServeEngine:
         number of active slots. Membership changes (admits at the leading
         boundary, retires at the trailing one) land as gate epochs.
         Inactive slots decode too (token 0 at their stale position), as
-        in the reference, so both engines' caches evolve alike."""
-        self._admit()
+        in the reference, so both engines' caches evolve alike.
+
+        Its spans: ``serve.step`` around it, made of ``serve.admit``
+        (the refill: per group ``serve.prefill``, ``serve.splice`` and
+        ``serve.first_read``, the host's wait for the first tokens),
+        ``serve.decode`` (``serve.decode.launch``, the enqueue of the
+        decode step; ``serve.decode.read``, the host's wait for its
+        tokens; the slots' bookkeeping) and ``serve.advance`` (the
+        gate's phase); ``serve.join`` and ``serve.leave`` wherever a
+        slot joins or leaves the gate."""
+        with span("serve.step"):
+            with span("serve.admit"):
+                self._admit()
+            with span("serve.decode"):
+                n = self._decode()
+            # a step that decoded nothing still lands the churn of
+            # requests admitted and retired inside _admit (e.g. max_new
+            # reached at prefill) as an epoch at this boundary
+            if n or self.gate.pending_churn:
+                # the step's phase: every live participant signals, the
+                # advance marks the boundary where this step's churn
+                # becomes the new epoch
+                with span("serve.advance"):
+                    self.gate.advance()
+        return n
+
+    def _decode(self) -> int:
+        """The decode step over every slot, its tokens read back and
+        each active slot's request advanced (retired when done)."""
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         self.metrics.set("serve.occupancy", len(active))
         self.metrics.observe("serve.active_slots", len(active))
         if not active:
-            if self.gate.pending_churn:
-                # a request was admitted AND retired inside _admit (e.g.
-                # max_new reached at prefill): its join/leave must still
-                # land as an epoch at this boundary
-                self.gate.advance()
             return 0
         token_b = np.zeros((self.batch,), np.int32)
         for i in active:
@@ -356,8 +387,10 @@ class ServeEngine:
             token_b[i] = r.out[-1] if r.out else r.prompt[-1]
         self.metrics.inc("serve.decode.steps")
         t0 = time.perf_counter()
-        logits, self.state = self._dispatch(token_b, self.slot_pos)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        with span("serve.decode.launch"):
+            logits, self.state = self._dispatch(token_b, self.slot_pos)
+        with span("serve.decode.read"):
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         # the copy to the host waited for the device: this is the real
         # per-token decode latency of the whole batch
         self.metrics.observe("serve.decode.token_seconds",
@@ -369,9 +402,6 @@ class ServeEngine:
             if len(r.out) >= r.max_new:
                 r.done = True
                 self._retire(i)     # slot freed -> next boundary refills
-        # the step's phase: every live participant signals, the advance
-        # marks the boundary where this step's churn becomes the new epoch
-        self.gate.advance()
         return len(active)
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:

@@ -41,10 +41,52 @@ from ..data import SyntheticLM
 from ..models.registry import ModelAPI
 from ..obs import timeline as obs_timeline
 from ..obs.metrics import MetricsRegistry
+from ..obs.timeline import span
 from ..optim import AdamW, OptState
 from ..runtime_elastic.elastic_phaser import ElasticPhaserRuntime
 from ..utils import to_device_copy
 from .step import build_train_step
+
+
+class _StepClock:
+    """``train.step_seconds`` as the device runs the steps: on a CUDA
+    device an event is recorded after each step (and one before the
+    first), and a step's seconds are those between its event and the
+    one before, observed once the later event has completed, so the
+    loop never waits for it; ``drain`` observes the rest at the end of
+    the run. On the CPU a step's host time."""
+
+    def __init__(self, metrics: MetricsRegistry, device, event=None):
+        self.metrics = metrics
+        self.event = event
+        if self.event is None and torch.device(device).type == "cuda":
+            self.event = lambda: torch.cuda.Event(enable_timing=True)
+        self.pending: List[Any] = []
+        if self.event is not None:
+            self._record()
+
+    def _record(self) -> None:
+        ev = self.event()
+        ev.record()
+        self.pending.append(ev)
+
+    def step_end(self, t0: float) -> None:
+        if self.event is None:
+            self.metrics.observe("train.step_seconds", time.time() - t0)
+            return
+        self._record()
+        self._observe_done()
+
+    def _observe_done(self) -> None:
+        while len(self.pending) > 1 and self.pending[1].query():
+            a = self.pending.pop(0)
+            self.metrics.observe("train.step_seconds",
+                                 a.elapsed_time(self.pending[0]) / 1e3)
+
+    def drain(self) -> None:
+        if len(self.pending) > 1:
+            self.pending[-1].synchronize()
+            self._observe_done()
 
 
 @dataclass
@@ -241,62 +283,64 @@ class TrainLoop:
                 ts = self._build_step()
         params, opt_state = self._to_carried(ts, params, opt_state)
 
+        clock = (_StepClock(self.metrics, self.device)
+                 if self.metrics is not None else None)
         for step in range(start, steps):
-            if self.runtime is not None:
-                self._apply_elastic_events(step)
-            batch = {k: to_device_copy(v, self.device)
-                     for k, v in next(self.data).items()}
+            if self.runtime is not None and self.elastic_events.get(step):
+                with span("train.churn"):
+                    self._apply_elastic_events(step)
+            with span("train.batch"):
+                batch = {k: to_device_copy(v, self.device)
+                         for k, v in next(self.data).items()}
             t0 = time.time()
-            tp0 = (self.timeline.now() if self.timeline is not None
-                   else 0.0)
-            if ts.program is not None:
-                # per-worker alive mask, after this step's events: a
-                # worker that left mid-epoch contributes zeros
-                ep = self.runtime.epoch
-                alive = torch.tensor([1.0 if w in self.runtime.live else 0.0
-                                      for w in ep.live],
-                                     dtype=torch.float32, device=self.device)
-                params, opt_state, metrics = ts.fn(params, opt_state, batch,
-                                                   alive)
-            else:
-                params, opt_state, metrics = ts.fn(params, opt_state, batch)
-            if self.timeline is not None:
-                self.timeline.complete("train.step", tp0,
-                                       args={"step": step})
-            if self.metrics is not None:
-                self.metrics.observe("train.step_seconds",
-                                     time.time() - t0)
+            with span("train.step", step=step):
+                if ts.program is not None:
+                    # per-worker alive mask, after this step's events: a
+                    # worker that left mid-epoch contributes zeros
+                    ep = self.runtime.epoch
+                    alive = torch.tensor(
+                        [1.0 if w in self.runtime.live else 0.0
+                         for w in ep.live],
+                        dtype=torch.float32, device=self.device)
+                    params, opt_state, metrics = ts.fn(params, opt_state,
+                                                       batch, alive)
+                else:
+                    params, opt_state, metrics = ts.fn(params, opt_state,
+                                                       batch)
+            if clock is not None:
+                clock.step_end(t0)
             if self.runtime is not None:
                 # the step is one phaser phase; churn requested above
                 # lands as a new epoch exactly at this boundary
                 before = self.runtime.epoch.index
-                released = self.runtime.advance(step=step)
+                with span("train.advance"):
+                    released = self.runtime.advance(step=step)
                 ep = self.runtime.epoch
                 if ep.index != before:
                     # checkpoint-consistent swap: persist, then re-build
                     if self.ckpt is not None:
-                        cp, co = self._to_canonical(ts, params, opt_state)
-                        self.ckpt.save(step + 1, cp, co,
-                                       extra={"data":
-                                              self.data.state_dict()},
-                                       program_key=self._program_key())
-                    tb = (self.timeline.now()
-                          if self.timeline is not None else 0.0)
-                    ts = self._build_step()
-                    if self.timeline is not None:
-                        self.timeline.complete("epoch.relower", tb,
-                                               args={"epoch": ep.index})
+                        with span("train.checkpoint"):
+                            cp, co = self._to_canonical(ts, params,
+                                                        opt_state)
+                            self.ckpt.save(
+                                step + 1, cp, co,
+                                extra={"data": self.data.state_dict()},
+                                program_key=self._program_key())
+                    with span("epoch.relower", epoch=ep.index):
+                        ts = self._build_step()
                     if self.metrics is not None:
                         self.metrics.inc("train.relower")
-                    self.runtime.verify_epoch()
-                    if self._pipelined_2d:
-                        # the stage axis's own proof: the (interleaved)
-                        # 1F1B wave order against the real p2p actors
-                        from ..pipeline_exec import (derive_interleaved,
-                                                     verify_phase_order)
-                        verify_phase_order(derive_interleaved(
-                            self.pipeline_stages, self.microbatches,
-                            self.interleave))
+                    with span("train.verify"):
+                        self.runtime.verify_epoch()
+                        if self._pipelined_2d:
+                            # the stage axis's own proof: the
+                            # (interleaved) 1F1B wave order against the
+                            # real p2p actors
+                            from ..pipeline_exec import (
+                                derive_interleaved, verify_phase_order)
+                            verify_phase_order(derive_interleaved(
+                                self.pipeline_stages, self.microbatches,
+                                self.interleave))
                     self.epoch_log.append({
                         "step": step, "phase": released,
                         "epoch": ep.index, "live": list(ep.live),
@@ -310,12 +354,15 @@ class TrainLoop:
                     m["live"] = len(self.runtime.live)
                 self.metrics_log.append(m)
             if self.ckpt is not None and (step + 1) % self.ckpt_every == 0:
-                cp, co = self._to_canonical(ts, params, opt_state)
-                self.ckpt.save(step + 1, cp, co,
-                               extra={"data": self.data.state_dict()},
-                               program_key=self._program_key())
+                with span("train.checkpoint"):
+                    cp, co = self._to_canonical(ts, params, opt_state)
+                    self.ckpt.save(step + 1, cp, co,
+                                   extra={"data": self.data.state_dict()},
+                                   program_key=self._program_key())
             if on_step is not None:
                 on_step(step, params, metrics)
+        if clock is not None:
+            clock.drain()
         params, opt_state = self._to_canonical(ts, params, opt_state)
         if self.ckpt is not None:
             self.ckpt.save(steps, params, opt_state,
